@@ -1,0 +1,392 @@
+#!/usr/bin/env python3
+"""On-card smoke test of the PyTorch/CUDA port (zotpu_torch) on one GPU.
+
+    python3 chip_smoke.py [--seed N]      # from the repository root
+
+Phases (any failure exits non-zero; no exception is caught):
+
+1. the card's name and power limit (nvidia-smi), then the kernel build;
+2. each kernel against its plain PyTorch version on the same CUDA tensors
+   at the main path's shapes (a batch of 65,536 reads x 160, k=25): exact
+   equality, and both times by CUDA events (median of several runs);
+3. the main path at real size: ``python -m zotpu_torch kmerize -k 25`` on
+   a synthetic E. coli K-12-sized genome (4,641,652 bp) read at 30x
+   (150 bp, 0.5% substitutions, a sprinkling of N), checked against an
+   oracle that uses neither K2, K3 nor the accumulator (plain pack per
+   batch, torch.cat, torch.unique); then the same fixture through the u8
+   pack path (--max-len 150), which must give the same container. The
+   launch counts are set to 0 just before each of these two runs and read
+   just after it: the wire run's counts for K1a, K2 and K3, the u8 run's
+   for K1b; each must be > 0;
+4. golden: a ~1 Mbase subset through the CLI's u8 path (--max-len 150)
+   against zotpu.reference_impl.golden.kmerize.
+
+The last line is ``{"ok": true, "device": {...}}``; the line before it is
+one JSON object with every kernel's launches, error and times.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import io
+import json
+import os
+import statistics
+import subprocess
+import sys
+import tempfile
+import time
+
+import numpy as np
+
+GENOME_BP = 4_641_652          # E. coli K-12 MG1655
+READ_LEN = 150
+COVERAGE = 30
+SUB_RATE = 0.005
+N_RATE = 1e-4
+K = 25
+BATCH_READS = 65536
+MAX_LEN = 160                  # 32 | 160: the wire path
+SUBSET_READS = 6700            # ~1 Mbase for the golden check
+
+# name -> (source, the Pallas call it replaces)
+KERNEL_INFO = {
+    "pack_canonical_wire": ("zotpu_torch/csrc/pack.cu",
+                            "zotpu/kernels/pack_pallas.py:222"),
+    "pack_canonical": ("zotpu_torch/csrc/pack.cu",
+                       "zotpu/kernels/pack_pallas.py:173"),
+    "dedup_compact": ("zotpu_torch/csrc/dedup.cu",
+                      "zotpu/kernels/dedup_pallas.py:287"),
+    "set_op_fused": ("zotpu_torch/csrc/merge.cu",
+                     "zotpu/kernels/merge_fused.py:609"),
+}
+
+
+def check(cond, what):
+    if not cond:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def say(*parts):
+    print(*parts, flush=True)
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+
+
+def cuda_ms(torch, fn, reps=7, warm=2) -> float:
+    """Median milliseconds of fn() by CUDA events, after warm-up."""
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def max_abs_err(torch, got, want) -> float:
+    err = 0.0
+    for g, w in zip(got, want):
+        check(g.shape == w.shape,
+              f"shape {tuple(g.shape)} != {tuple(w.shape)}")
+        if not torch.equal(g, w):
+            err = max(err, float((g.double() - w.double()).abs().max()))
+    return err
+
+
+def make_reads(rng, genome, n):
+    """n reads of READ_LEN codes (0-3, 4 = N) from the genome, with
+    substitutions at SUB_RATE and N at N_RATE (the coverage fixture's
+    recipe, zotpu/bench/harness.py _Fixture)."""
+    offs = rng.integers(0, len(genome) - READ_LEN, n)
+    codes = genome[offs[:, None] + np.arange(READ_LEN)[None, :]]
+    n_sub = int(n * READ_LEN * SUB_RATE)
+    codes[rng.integers(0, n, n_sub), rng.integers(0, READ_LEN, n_sub)] = (
+        rng.integers(0, 4, n_sub).astype(np.uint8))
+    n_n = int(n * READ_LEN * N_RATE)
+    codes[rng.integers(0, n, n_n), rng.integers(0, READ_LEN, n_n)] = 4
+    return codes
+
+
+def write_fastq(f, codes, first_id):
+    n, L = codes.shape
+    rec = np.empty((n, 10 + 2 * L + 4), np.uint8)
+    ids = np.arange(first_id, first_id + n)
+    rec[:, 0] = ord("@")
+    rec[:, 1] = ord("r")
+    rec[:, 2:9] = (ids[:, None] // 10 ** np.arange(6, -1, -1)) % 10 + ord("0")
+    rec[:, 9] = ord("\n")
+    rec[:, 10:10 + L] = np.frombuffer(b"ACGTN", np.uint8)[codes]
+    rec[:, 10 + L:13 + L] = np.frombuffer(b"\n+\n", np.uint8)
+    rec[:, 13 + L:13 + 2 * L] = ord("I")
+    rec[:, 13 + 2 * L] = ord("\n")
+    f.write(rec.tobytes())
+
+
+def batch_codes(rng, genome, rows):
+    """A parsed-batch-shaped (rows, MAX_LEN) u8 array: reads + N padding."""
+    codes = np.full((rows, MAX_LEN), 4, np.uint8)
+    codes[:, :READ_LEN] = make_reads(rng, genome, rows)
+    return codes, np.full(rows, READ_LEN, np.int32)
+
+
+def run_cli(argv):
+    """python -m zotpu_torch ... in-process; returns its stats line."""
+    from zotpu_torch import cli
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(argv)
+    check(rc == 0, f"zotpu_torch {' '.join(argv)} exited {rc}")
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def phase_kernels(torch, dev, rng, genome):
+    """Phase 2: kernel vs plain at the main path's shapes."""
+    from zotpu.io import wire
+    from zotpu_torch.kernels import merge_fused as M
+    from zotpu_torch.kernels import pack as P
+    from zotpu_torch.kernels import sortdedup as D
+
+    rows = {}
+    codes, lengths = batch_codes(rng, genome, BATCH_READS)
+    packed, mask = wire.pack_codes(codes)
+    c = torch.from_numpy(codes).to(dev)
+    n = torch.from_numpy(lengths).to(dev)
+    p = torch.from_numpy(packed.view(np.int32)).to(dev)
+    m = torch.from_numpy(mask.view(np.int32)).to(dev)
+    say(f"phase 2: batch {BATCH_READS} x {MAX_LEN}, k={K}, "
+        f"{BATCH_READS * (MAX_LEN - K + 1)} windows")
+
+    def measure(name, kernel, plain):
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        err = max_abs_err(torch, got, want)
+        ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+        say(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
+            f"plain {plain_ms:.4f} ms (CUDA events, median)")
+        check(err == 0, f"{name} differs from its plain version")
+        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    rows["pack_canonical_wire"] = measure(
+        "pack_canonical_wire (K1a)",
+        lambda: P.pack_canonical_wire(p, m, n, K),
+        lambda: P.pack_canonical_wire_plain(p, m, n, K))
+    rows["pack_canonical"] = measure(
+        "pack_canonical (K1b)", lambda: P.pack_canonical(c, n, K),
+        lambda: P.pack_canonical_plain(c, n, K))
+
+    keys = P.pack_canonical_wire(p, m, n, K)
+    sorted_keys = torch.sort(keys).values
+    sort_ms = cuda_ms(torch, lambda: torch.sort(keys))
+    say(f"  torch.sort of {keys.shape[0]} int64 keys: {sort_ms:.4f} ms")
+    rows["dedup_compact"] = measure(
+        "dedup_compact (K2)", lambda: D.dedup_compact(sorted_keys),
+        lambda: D.dedup_compact_plain(sorted_keys))
+
+    # two level-0 runs of the accumulator: dedup outputs of two batches
+    runs = [D.kmer_sort_dedup(keys)]
+    codes2, _ = batch_codes(rng, genome, BATCH_READS)
+    runs.append(D.kmer_sort_dedup(P.pack_canonical(
+        torch.from_numpy(codes2).to(dev), n, K)))
+    (ka, ca, na), (kb, cb, nb) = runs
+    say(f"  set_op_fused inputs: n_a={int(na)} n_b={int(nb)} of "
+        f"{ka.shape[0]} each")
+    for op in ("merge", "union", "intersect", "diff"):
+        r = measure(f"set_op_fused op={op} (K3)",
+                    lambda: M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                    lambda: M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb))
+        if op == "merge":
+            rows["set_op_fused"] = r
+    ko, co, no = M.set_op_fused(ka, ca, kb, cb, "merge", n_a=na, n_b=nb)
+    nout = int(no)
+    pin_k = torch.empty(nout, dtype=torch.int64, pin_memory=True)
+    pageable_ms = cuda_ms(torch, lambda: ko[:nout].cpu())
+    pinned_ms = cuda_ms(torch, lambda: pin_k.copy_(ko[:nout]))
+    say(f"  D2H of {nout} merged int64 keys: pageable {pageable_ms:.4f} ms, "
+        f"pinned {pinned_ms:.4f} ms")
+    pinned = torch.from_numpy(packed.view(np.int32)).pin_memory()
+    h2d_ms = cuda_ms(torch, lambda: p.copy_(pinned, non_blocking=True))
+    say(f"  H2D of one batch's wire words ({packed.nbytes} B, pinned): "
+        f"{h2d_ms:.4f} ms")
+    return rows
+
+
+def phase_main_path(torch, rng, genome, tmp):
+    """Phases 3 and 4: the main path through the CLI at real size, on the
+    wire path and on the u8 path, then the u8 path on the golden subset;
+    returns each kernel's launches in its main-path run."""
+    from zotpu.io import container, fastq
+    from zotpu.reference_impl import golden as G
+    from zotpu_torch import kernels
+    from zotpu_torch.kernels.pack import pack_canonical_plain
+    from zotpu_torch.keys import SENTINEL
+    from zotpu_torch.workloads import kmerize as W
+
+    n_reads = round(COVERAGE * GENOME_BP / READ_LEN)
+    fq = os.path.join(tmp, "ecoli30x.fastq")
+    sub_fq = os.path.join(tmp, "subset.fastq")
+    t0 = time.perf_counter()
+    subset = None
+    with open(fq, "wb") as f:
+        for lo in range(0, n_reads, 1 << 16):
+            codes = make_reads(rng, genome, min(1 << 16, n_reads - lo))
+            if subset is None:
+                subset = codes[:SUBSET_READS].copy()
+            write_fastq(f, codes, lo)
+    with open(sub_fq, "wb") as f:
+        write_fastq(f, subset, 0)
+    say(f"phase 3: wrote {n_reads} reads x {READ_LEN} bp "
+        f"({n_reads * READ_LEN} bases) in {time.perf_counter() - t0:.1f} s")
+
+    out = os.path.join(tmp, "ecoli30x.zkf")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = run_cli(["kmerize", "-k", str(K), "--batch-reads",
+                     str(BATCH_READS), "--max-len", str(MAX_LEN), out, fq])
+    wall = time.perf_counter() - t0
+    run1 = kernels.launches()
+    say(f"  kmerize (CLI, cuda): {json.dumps(stats)}")
+    say(f"  wall {wall:.3f} s, {stats['bases'] / wall:.6e} bases/s, "
+        f"unique {stats['unique']}, launches {json.dumps(run1)}")
+    b = stats["batches"]
+    check(run1["pack_canonical_wire"] == b, "K1a ran once per batch")
+    check(run1["dedup_compact"] == b, "K2 ran once per batch")
+    check(run1["set_op_fused"] >= b - 1, "K3 ran at least batches-1 times")
+    check(run1["pack_canonical"] == 0, "the wire run took no u8 pack")
+
+    # the oracle: plain pack per batch on the card, cat, torch.unique
+    t0 = time.perf_counter()
+    parts = []
+    for batch in fastq.parse_batches(fq, BATCH_READS, MAX_LEN, halo=K - 1):
+        k = pack_canonical_plain(torch.from_numpy(batch.codes).cuda(),
+                                 torch.from_numpy(batch.lengths).cuda(), K)
+        parts.append(k[k != SENTINEL])
+    allk = torch.cat(parts)
+    del parts
+    uk, uc = torch.unique(allk, sorted=True, return_counts=True)
+    got = container.read(out)
+    check(np.all(np.diff(got.keys.astype(np.int64)) > 0),
+          "keys strictly increasing")
+    check(int(got.counts.sum(dtype=np.uint64)) == allk.shape[0],
+          "sum of counts = valid windows")
+    check(np.array_equal(got.keys, uk.cpu().numpy().astype(np.uint64)),
+          "keys equal the oracle's")
+    check(np.array_equal(got.counts.astype(np.int64), uc.cpu().numpy()),
+          "counts equal the oracle's")
+    say(f"  oracle (plain pack + torch.unique) agrees: {uk.shape[0]} keys, "
+        f"{allk.shape[0]} windows ({time.perf_counter() - t0:.1f} s)")
+    del allk, uk, uc
+
+    # the same fixture through the u8 pack path: 32 does not divide 150
+    u8_out = os.path.join(tmp, "ecoli30x_u8.zkf")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    ustats = run_cli(["kmerize", "-k", str(K), "--batch-reads",
+                      str(BATCH_READS), "--max-len", str(READ_LEN), u8_out,
+                      fq])
+    uwall = time.perf_counter() - t0
+    run_u8 = kernels.launches()
+    say(f"  kmerize u8 path (--max-len {READ_LEN}): wall {uwall:.3f} s, "
+        f"{ustats['bases'] / uwall:.6e} bases/s, launches "
+        f"{json.dumps(run_u8)}")
+    check(run_u8["pack_canonical"] == ustats["batches"], "K1b ran per batch")
+    check(run_u8["pack_canonical_wire"] == 0, "the u8 run took no wire pack")
+    got_u8 = container.read(u8_out)
+    check(np.array_equal(got_u8.keys, got.keys)
+          and np.array_equal(got_u8.counts, got.counts),
+          "u8 path container equals the wire path's")
+    del got, got_u8
+
+    # host side alone: parse + wire pack + pin, no device work
+    t0 = time.perf_counter()
+    hstats = W.Stats()
+    for _ in W._iter_batches([fq], BATCH_READS, MAX_LEN, K, hstats,
+                             wire_pack=True, pin=True):
+        pass
+    hwall = time.perf_counter() - t0
+    say(f"  host pipeline alone (parse + wire pack + pin): {hwall:.3f} s, "
+        f"{hstats.bases / hwall:.6e} bases/s")
+
+    say("phase 4: golden subset through the u8 path")
+    sub_out = os.path.join(tmp, "subset.zkf")
+    kernels.reset_launches()
+    sstats = run_cli(["kmerize", "-k", str(K), "--batch-reads", "1024",
+                      "--max-len", str(READ_LEN), sub_out, sub_fq])
+    run2 = kernels.launches()
+    check(run2["pack_canonical"] == sstats["batches"], "K1b ran per batch")
+    want_k, want_c = G.kmerize(K, list(subset))
+    got = container.read(sub_out)
+    check(np.array_equal(got.keys, want_k), "subset keys equal golden")
+    check(np.array_equal(got.counts, want_c), "subset counts equal golden")
+    say(f"  {sstats['bases']} bases, {sstats['batches']} batches, "
+        f"{len(want_k)} unique k-mers: equal to golden; launches "
+        f"{json.dumps(run2)}")
+    # main-path counts: the wire run's, and K1b from the u8 run
+    counts = dict(run1, pack_canonical=run_u8["pack_canonical"])
+    for name, n in counts.items():
+        check(n > 0, f"{name} launched on the main path")
+    return counts, {"wall_s": wall, "bases": stats["bases"],
+                    "bases_per_s": stats["bases"] / wall,
+                    "u8_wall_s": uwall,
+                    "unique": stats["unique"], "batches": b,
+                    "host_bases_per_s": hstats.bases / hwall}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    import torch
+    if not torch.cuda.is_available():
+        print("error: no CUDA device (torch.cuda.is_available() is false)",
+              file=sys.stderr)
+        return 1
+    from zotpu.io import native
+    from zotpu_torch import _build
+
+    card = card_line()
+    say(f"phase 1: {card}; torch {torch.__version__}, CUDA "
+        f"{torch.version.cuda}, {torch.cuda.get_device_name(0)}")
+    so, secs = _build.build()
+    _build.lib()
+    say(f"  kernels built in {secs:.1f} s -> {os.path.relpath(so)}")
+    say(f"  native FASTQ parser: "
+        f"{'yes' if native.get_lib() is not None else 'no (numpy parse)'}")
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(args.seed)
+    genome = rng.integers(0, 4, GENOME_BP).astype(np.uint8)
+    rows = phase_kernels(torch, dev, rng, genome)
+    with tempfile.TemporaryDirectory() as tmp:
+        launches, e2e = phase_main_path(torch, rng, genome, tmp)
+    say(f"e2e: {json.dumps(e2e)}")
+    check("jax" not in sys.modules, "no jax imported")
+
+    say(card_line())
+    say(json.dumps({"kernels": [
+        {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
+         "replaces": KERNEL_INFO[name][1], "launches": launches[name],
+         **rows[name]} for name in KERNEL_INFO]}))
+    say(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

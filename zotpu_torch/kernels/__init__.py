@@ -1,0 +1,24 @@
+"""Hand-written CUDA kernels of the port, each beside its plain PyTorch
+version. ``KERNELS`` maps a kernel's name to its wrapper; every wrapper
+counts its launches in ``.launches`` (CPU calls run the plain version and do
+not count)."""
+
+from zotpu_torch.kernels.merge_fused import set_op_fused
+from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
+from zotpu_torch.kernels.sortdedup import dedup_compact
+
+KERNELS = {
+    "pack_canonical_wire": pack_canonical_wire,
+    "pack_canonical": pack_canonical,
+    "dedup_compact": dedup_compact,
+    "set_op_fused": set_op_fused,
+}
+
+
+def reset_launches() -> None:
+    for fn in KERNELS.values():
+        fn.launches = 0
+
+
+def launches() -> dict[str, int]:
+    return {name: fn.launches for name, fn in KERNELS.items()}
