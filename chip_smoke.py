@@ -7,10 +7,11 @@ Phases (any failure exits non-zero; no exception is caught):
 
 1. the card's name and power limit (nvidia-smi), then the kernel build;
 2. each kernel against its plain PyTorch version on the same CUDA tensors
-   at the main path's shapes (a batch of 65,536 reads x 160, k=25): exact
-   equality, and both times by CUDA events (median of several runs);
-3. the main path at real size: ``python -m zotpu_torch kmerize -k 25`` on
-   a synthetic E. coli K-12-sized genome (4,641,652 bp) read at 30x
+   at the main path's shapes (a batch of 65,536 reads x 160, k=25; the
+   join against the scan panel of phase 5): exact equality, and both
+   times by CUDA events (median of several runs);
+3. the kmerize path at real size: ``python -m zotpu_torch kmerize -k 25``
+   on a synthetic E. coli K-12-sized genome (4,641,652 bp) read at 30x
    (150 bp, 0.5% substitutions, a sprinkling of N), checked against an
    oracle that uses neither K2, K3 nor the accumulator (plain pack per
    batch, torch.cat, torch.unique); then the same fixture through the u8
@@ -19,7 +20,17 @@ Phases (any failure exits non-zero; no exception is caught):
    just after it: the wire run's counts for K1a, K2 and K3, the u8 run's
    for K1b; each must be > 0;
 4. golden: a ~1 Mbase subset through the CLI's u8 path (--max-len 150)
-   against zotpu.reference_impl.golden.kmerize.
+   against zotpu.reference_impl.golden.kmerize;
+5. the scan path at real size (BASELINE config 5): ``python -m zotpu_torch
+   scan`` of the same reads, split into 16 samples, against a panel of the
+   canonical 25-mers of the genome's first 1,000,000 bp plus 2^20 random
+   keys, checked against an oracle that uses neither the join module nor
+   K4 (plain pack per batch, torch.isin, a row sum, the record sums); the
+   counts are reset just before the run and K1a and K4 must each equal the
+   batch count; then the subset through the u8 path against
+   golden.scan_panel;
+6. ``evidence --out-reads`` on spiked reads of a genome slice against
+   golden.kmerize + variants.evidence_from_counts and golden.scan_panel.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's launches, error and times.
@@ -49,6 +60,9 @@ K = 25
 BATCH_READS = 65536
 MAX_LEN = 160                  # 32 | 160: the wire path
 SUBSET_READS = 6700            # ~1 Mbase for the golden check
+N_SAMPLES = 16                 # BASELINE config 5: 16 read sets, one panel
+PANEL_BP = 1_000_000           # the panel's genomic part (harness.py:207)
+PANEL_RANDOM = 1 << 20         # and its random background keys
 
 # name -> (source, the Pallas call it replaces)
 KERNEL_INFO = {
@@ -60,6 +74,8 @@ KERNEL_INFO = {
                       "zotpu/kernels/dedup_pallas.py:287"),
     "set_op_fused": ("zotpu_torch/csrc/merge.cu",
                      "zotpu/kernels/merge_fused.py:609"),
+    "join_row_hits": ("zotpu_torch/csrc/join.cu",
+                      "zotpu/kernels/sort_pallas.py:676"),
 }
 
 
@@ -143,21 +159,57 @@ def batch_codes(rng, genome, rows):
 
 
 def run_cli(argv):
-    """python -m zotpu_torch ... in-process; returns its stats line."""
+    """python -m zotpu_torch ... in-process; returns its stdout lines."""
     from zotpu_torch import cli
+    argv = [str(a) for a in argv]
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
         rc = cli.main(argv)
     check(rc == 0, f"zotpu_torch {' '.join(argv)} exited {rc}")
-    return json.loads(buf.getvalue().strip().splitlines()[-1])
+    return buf.getvalue().strip().splitlines()
 
 
-def phase_kernels(torch, dev, rng, genome):
+def make_panel(genome, seed):
+    """The scan panel: canonical K-mers of genome[:PANEL_BP] plus
+    PANEL_RANDOM random keys below 4^K, sorted unique u64."""
+    from zotpu.reference_impl import golden as G
+    gkeys, _ = G.kmerize(K, [genome[:PANEL_BP]])
+    rng = np.random.default_rng([seed, 5])
+    return np.unique(np.concatenate([
+        gkeys, rng.integers(0, 1 << (2 * K), PANEL_RANDOM, dtype=np.uint64)]))
+
+
+def device_timeline(torch, prof):
+    """From a torch.profiler trace: the microseconds the device was busy
+    (the union of its kernel and copy intervals) and the device rows with
+    the most time, or (None, []) when the trace holds no device event."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not evs:
+        return None, []
+    busy, cur = 0.0, None
+    for lo, hi in sorted((e.time_range.start, e.time_range.end)
+                         for e in evs):
+        if cur is None or lo > cur[1]:
+            busy += 0 if cur is None else cur[1] - cur[0]
+            cur = [lo, hi]
+        else:
+            cur[1] = max(cur[1], hi)
+    busy += cur[1] - cur[0]
+    rows = {}
+    for e in evs:
+        rows[e.name] = rows.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return busy, sorted(rows.items(), key=lambda kv: -kv[1])[:5]
+
+
+def phase_kernels(torch, dev, rng, genome, panel):
     """Phase 2: kernel vs plain at the main path's shapes."""
     from zotpu.io import wire
+    from zotpu_torch.kernels import join as J
     from zotpu_torch.kernels import merge_fused as M
     from zotpu_torch.kernels import pack as P
     from zotpu_torch.kernels import sortdedup as D
+    from zotpu_torch.workloads.pulldown import panel_to_device
 
     rows = {}
     codes, lengths = batch_codes(rng, genome, BATCH_READS)
@@ -197,6 +249,19 @@ def phase_kernels(torch, dev, rng, genome):
         "dedup_compact (K2)", lambda: D.dedup_compact(sorted_keys),
         lambda: D.dedup_compact_plain(sorted_keys))
 
+    panel_t = panel_to_device(panel, device=dev)
+    say(f"  scan panel: {len(panel)} keys ({panel.nbytes} B), padded to "
+        f"{panel_t.shape[0]}")
+    m_row = MAX_LEN - K + 1
+    rows["join_row_hits"] = measure(
+        "join_row_hits (K4)",
+        lambda: J.row_hits_sorted_join(panel_t, keys, BATCH_READS, m_row),
+        lambda: J.row_hits_plain(panel_t, keys, BATCH_READS, m_row))
+    hits = J.row_hits_sorted_join(panel_t, keys, BATCH_READS, m_row)
+    say(f"  K4 batch: {int(hits.sum())} hits, {int((hits > 0).sum())} of "
+        f"{BATCH_READS} rows hit")
+    del panel_t, hits
+
     # two level-0 runs of the accumulator: dedup outputs of two batches
     runs = [D.kmer_sort_dedup(keys)]
     codes2, _ = batch_codes(rng, genome, BATCH_READS)
@@ -225,10 +290,42 @@ def phase_kernels(torch, dev, rng, genome):
     return rows
 
 
-def phase_main_path(torch, rng, genome, tmp):
-    """Phases 3 and 4: the main path through the CLI at real size, on the
-    wire path and on the u8 path, then the u8 path on the golden subset;
-    returns each kernel's launches in its main-path run."""
+def write_fixture(rng, genome, tmp):
+    """The 30x reads as one FASTQ, as N_SAMPLES FASTQ samples of
+    consecutive reads, and the golden subset (the first SUBSET_READS)."""
+    n_reads = round(COVERAGE * GENOME_BP / READ_LEN)
+    fq = os.path.join(tmp, "ecoli30x.fastq")
+    sub_fq = os.path.join(tmp, "subset.fastq")
+    samples = [os.path.join(tmp, f"s{i}.fastq") for i in range(N_SAMPLES)]
+    bounds = np.linspace(0, n_reads, N_SAMPLES + 1).astype(np.int64)
+    t0 = time.perf_counter()
+    subset = None
+    with contextlib.ExitStack() as stack:
+        f = stack.enter_context(open(fq, "wb"))
+        sf = [stack.enter_context(open(p, "wb")) for p in samples]
+        for lo in range(0, n_reads, 1 << 16):
+            codes = make_reads(rng, genome, min(1 << 16, n_reads - lo))
+            if subset is None:
+                subset = codes[:SUBSET_READS].copy()
+            write_fastq(f, codes, lo)
+            hi = lo + len(codes)
+            for s in range(N_SAMPLES):
+                a, b = max(bounds[s], lo), min(bounds[s + 1], hi)
+                if a < b:
+                    write_fastq(sf[s], codes[a - lo:b - lo], a)
+    with open(sub_fq, "wb") as f:
+        write_fastq(f, subset, 0)
+    say(f"phase 3: wrote {n_reads} reads x {READ_LEN} bp "
+        f"({n_reads * READ_LEN} bases), once whole and once as "
+        f"{N_SAMPLES} samples, in {time.perf_counter() - t0:.1f} s")
+    return {"fq": fq, "sub_fq": sub_fq, "subset": subset,
+            "samples": samples}
+
+
+def phase_main_path(torch, fx, tmp):
+    """Phases 3 and 4: the kmerize path through the CLI at real size, on
+    the wire path and on the u8 path, then the u8 path on the golden
+    subset; returns each kernel's launches in its main-path run."""
     from zotpu.io import container, fastq
     from zotpu.reference_impl import golden as G
     from zotpu_torch import kernels
@@ -236,27 +333,13 @@ def phase_main_path(torch, rng, genome, tmp):
     from zotpu_torch.keys import SENTINEL
     from zotpu_torch.workloads import kmerize as W
 
-    n_reads = round(COVERAGE * GENOME_BP / READ_LEN)
-    fq = os.path.join(tmp, "ecoli30x.fastq")
-    sub_fq = os.path.join(tmp, "subset.fastq")
-    t0 = time.perf_counter()
-    subset = None
-    with open(fq, "wb") as f:
-        for lo in range(0, n_reads, 1 << 16):
-            codes = make_reads(rng, genome, min(1 << 16, n_reads - lo))
-            if subset is None:
-                subset = codes[:SUBSET_READS].copy()
-            write_fastq(f, codes, lo)
-    with open(sub_fq, "wb") as f:
-        write_fastq(f, subset, 0)
-    say(f"phase 3: wrote {n_reads} reads x {READ_LEN} bp "
-        f"({n_reads * READ_LEN} bases) in {time.perf_counter() - t0:.1f} s")
-
+    fq, sub_fq, subset = fx["fq"], fx["sub_fq"], fx["subset"]
     out = os.path.join(tmp, "ecoli30x.zkf")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    stats = run_cli(["kmerize", "-k", str(K), "--batch-reads",
-                     str(BATCH_READS), "--max-len", str(MAX_LEN), out, fq])
+    stats = json.loads(run_cli(["kmerize", "-k", K, "--batch-reads",
+                                BATCH_READS, "--max-len", MAX_LEN, out,
+                                fq])[-1])
     wall = time.perf_counter() - t0
     run1 = kernels.launches()
     say(f"  kmerize (CLI, cuda): {json.dumps(stats)}")
@@ -295,9 +378,9 @@ def phase_main_path(torch, rng, genome, tmp):
     u8_out = os.path.join(tmp, "ecoli30x_u8.zkf")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    ustats = run_cli(["kmerize", "-k", str(K), "--batch-reads",
-                      str(BATCH_READS), "--max-len", str(READ_LEN), u8_out,
-                      fq])
+    ustats = json.loads(run_cli(["kmerize", "-k", K, "--batch-reads",
+                                 BATCH_READS, "--max-len", READ_LEN, u8_out,
+                                 fq])[-1])
     uwall = time.perf_counter() - t0
     run_u8 = kernels.launches()
     say(f"  kmerize u8 path (--max-len {READ_LEN}): wall {uwall:.3f} s, "
@@ -324,8 +407,9 @@ def phase_main_path(torch, rng, genome, tmp):
     say("phase 4: golden subset through the u8 path")
     sub_out = os.path.join(tmp, "subset.zkf")
     kernels.reset_launches()
-    sstats = run_cli(["kmerize", "-k", str(K), "--batch-reads", "1024",
-                      "--max-len", str(READ_LEN), sub_out, sub_fq])
+    sstats = json.loads(run_cli(["kmerize", "-k", K, "--batch-reads", 1024,
+                                 "--max-len", READ_LEN, sub_out,
+                                 sub_fq])[-1])
     run2 = kernels.launches()
     check(run2["pack_canonical"] == sstats["batches"], "K1b ran per batch")
     want_k, want_c = G.kmerize(K, list(subset))
@@ -336,14 +420,173 @@ def phase_main_path(torch, rng, genome, tmp):
         f"{len(want_k)} unique k-mers: equal to golden; launches "
         f"{json.dumps(run2)}")
     # main-path counts: the wire run's, and K1b from the u8 run
-    counts = dict(run1, pack_canonical=run_u8["pack_canonical"])
+    counts = {"pack_canonical_wire": run1["pack_canonical_wire"],
+              "pack_canonical": run_u8["pack_canonical"],
+              "dedup_compact": run1["dedup_compact"],
+              "set_op_fused": run1["set_op_fused"]}
     for name, n in counts.items():
-        check(n > 0, f"{name} launched on the main path")
+        check(n > 0, f"{name} launched on the kmerize path")
     return counts, {"wall_s": wall, "bases": stats["bases"],
                     "bases_per_s": stats["bases"] / wall,
                     "u8_wall_s": uwall,
                     "unique": stats["unique"], "batches": b,
                     "host_bases_per_s": hstats.bases / hwall}
+
+
+def phase_scan(torch, fx, panel, tmp):
+    """Phase 5: the scan path through the CLI at real size against an
+    oracle that uses neither the join module nor K4, then the golden
+    subset through the u8 path; returns K4's launches in the main run."""
+    from zotpu.io import container, fastq
+    from zotpu.reference_impl import golden as G
+    from zotpu_torch import kernels
+    from zotpu_torch.kernels.pack import pack_canonical_plain
+    from zotpu_torch.keys import SENTINEL
+    from zotpu_torch.workloads import pulldown as P
+
+    pz = os.path.join(tmp, "panel.zkf")
+    container.write(pz, container.KmerSet(k=K, keys=panel))
+    samples = fx["samples"]
+    say(f"phase 5: scan of {N_SAMPLES} samples against {len(panel)} panel "
+        f"keys, --batch-reads {BATCH_READS} --max-len {MAX_LEN}")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lines = run_cli(["scan", "--batch-reads", BATCH_READS, "--max-len",
+                     MAX_LEN, pz, *samples])
+    wall = time.perf_counter() - t0
+    run = kernels.launches()
+    got = [json.loads(x) for x in lines]
+    check([g["sample"] for g in got] == samples, "one line per sample")
+
+    # the oracle: plain pack per batch on the card, torch.isin against the
+    # unpadded panel, a reshape row sum, then the sums per record
+    t0 = time.perf_counter()
+    panel_t = torch.from_numpy(panel.astype(np.int64)).cuda()
+    batches = bases = probed = 0
+    for path, g in zip(samples, got):
+        hits, rids = [], []
+        for batch in fastq.parse_batches(path, BATCH_READS, MAX_LEN,
+                                         halo=K - 1):
+            keys = pack_canonical_plain(
+                torch.from_numpy(batch.codes).cuda(),
+                torch.from_numpy(batch.lengths).cuda(), K)
+            row = torch.isin(keys, panel_t).reshape(
+                batch.codes.shape[0], -1).sum(dim=1)
+            n = batch.n_reads
+            hits.append(row[:n].cpu().numpy())
+            rids.append(batch.record_ids[:n])
+            batches += 1
+            bases += batch.bases
+            probed += int((keys != SENTINEL).sum())
+        _, inv = np.unique(np.concatenate(rids), return_inverse=True)
+        per_rec = np.bincount(inv, weights=np.concatenate(hits))
+        check(g["total_hits"] == int(per_rec.sum())
+              and g["reads_with_hits"] == int((per_rec > 0).sum()),
+              f"scan of {path} equals the oracle")
+    del panel_t
+    total = sum(g["total_hits"] for g in got)
+    rwh = sum(g["reads_with_hits"] for g in got)
+    say(f"  oracle (plain pack + torch.isin + row/record sums) agrees on "
+        f"every sample: {total} hits, {rwh} reads with hits "
+        f"({time.perf_counter() - t0:.1f} s)")
+    say(f"  scan (CLI, cuda): wall {wall:.3f} s, {bases} bases, "
+        f"{bases / wall:.6e} bases/s, {probed} k-mers probed, "
+        f"{probed / wall:.6e} k-mers/s, {batches} batches, launches "
+        f"{json.dumps(run)}; {card_line()}")
+    check(run["pack_canonical_wire"] == batches, "K1a ran once per batch")
+    check(run["join_row_hits"] == batches, "K4 ran once per batch")
+    check(run["pack_canonical"] == 0, "the wire run took no u8 pack")
+
+    # where the time goes: the host side alone, then a warm rerun under
+    # torch.profiler for the device's busy share on the trace timeline
+    t0 = time.perf_counter()
+    for _ in P._iter_scan_batches(samples, BATCH_READS, MAX_LEN, K, True,
+                                  True):
+        pass
+    hwall = time.perf_counter() - t0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        run_cli(["scan", "--batch-reads", BATCH_READS, "--max-len", MAX_LEN,
+                 pz, *samples])
+        pwall = time.perf_counter() - t0
+    busy_us, top = device_timeline(torch, prof)
+    busy = ("not measured (no device event in the trace)" if busy_us is None
+            else f"{busy_us / 1e3:.3f} ms, idle share "
+                 f"{1 - busy_us / 1e6 / pwall:.4f}")
+    say(f"  host pipeline alone (parse + wire pack + pin, {N_SAMPLES} "
+        f"samples): {hwall:.3f} s, {bases / hwall:.6e} bases/s")
+    say(f"  profiled warm rerun: wall {pwall:.3f} s, device busy {busy}; "
+        f"top device rows (us): "
+        f"{json.dumps([[n[:40], round(t, 1)] for n, t in top])}")
+
+    kernels.reset_launches()
+    lines = run_cli(["scan", "--batch-reads", 1024, "--max-len", READ_LEN,
+                     "--per-read", pz, fx["sub_fq"]])
+    run2 = kernels.launches()
+    per_read = [int(x.split("\t")[2]) for x in lines[1:]]
+    want = G.scan_panel(K, panel, list(fx["subset"]))
+    check(per_read == want.tolist(), "subset per-read hits equal golden")
+    check(run2["pack_canonical"] > 0 and run2["join_row_hits"] > 0,
+          "the subset took the u8 pack and K4")
+    say(f"  golden subset (u8 path): {len(per_read)} reads, "
+        f"{int(want.sum())} hits, equal to golden.scan_panel; launches "
+        f"{json.dumps(run2)}")
+    return run["join_row_hits"], {
+        "wall_s": wall, "bases": bases, "bases_per_s": bases / wall,
+        "kmers_probed": probed, "kmers_per_s": probed / wall,
+        "batches": batches, "total_hits": total, "reads_with_hits": rwh,
+        "host_wall_s": hwall, "profiled_wall_s": pwall,
+        "device_busy_ms": None if busy_us is None else busy_us / 1e3}
+
+
+def phase_evidence(torch, genome, tmp, seed):
+    """Phase 6: probes -> evidence --out-reads on spiked reads of a 20 kbp
+    genome slice, against golden.kmerize + evidence_from_counts and the
+    golden scan of every read."""
+    from zotpu import variants as V
+    from zotpu.io import container, fastq
+    from zotpu.reference_impl import golden as G
+    from zotpu_torch import kernels
+
+    seq = np.frombuffer(b"ACGT", np.uint8)[genome[2_000_000:2_020_000]]
+    seq = seq.tobytes().decode()
+    ref = os.path.join(tmp, "ref.fa")
+    with open(ref, "w") as f:
+        f.write(">chr1\n" + "".join(seq[i:i + 60] + "\n"
+                                    for i in range(0, len(seq), 60)))
+    specs = [f"chr1:g.{p}{seq[p - 1]}>{'ACGT'['ACGT'.index(seq[p - 1]) - 1]}"
+             for p in (4001, 9001, 14001)] + ["chr1:g.17001_17003del"]
+    pz, fq = os.path.join(tmp, "probes.zkf"), os.path.join(tmp, "spiked.fq")
+    outdir = os.path.join(tmp, "support")
+    run_cli(["probes", "-k", K, ref, pz, *specs])
+    V.spike_reads(ref, specs, fq, coverage=30, vaf=0.3, read_len=READ_LEN,
+                  error_rate=0.002, seed=seed)
+    say(f"phase 6: evidence --out-reads, {len(specs)} variants on a "
+        f"{len(seq)} bp reference")
+    kernels.reset_launches()
+    lines = run_cli(["evidence", "--batch-reads", 4096, "--max-len", MAX_LEN,
+                     "--out-reads", outdir, pz, fq])
+    run = kernels.launches()
+    with fastq.open_file(fq) as f:
+        seqs = [s for _, s, _ in fastq.read_fastq(f)]
+    meta = container.read(pz).meta
+    rows = [json.loads(x) for x in lines]
+    want = [{"command": "evidence", "sample": fq, **r}
+            for r in V.evidence_from_counts(meta, *G.kmerize(K, seqs))]
+    check(rows[:-1] == want, "evidence rows equal golden")
+    written = rows[-1]["supporting_reads"]
+    for m in meta["variants"]:
+        alt = np.asarray([int(x, 16) for x in m["alt_probes"]], np.uint64)
+        n = int((G.scan_panel(K, alt, seqs) >= 1).sum())
+        check(written[m["spec"]] == n and n > 0,
+              f"{m['spec']}: supporting reads equal golden")
+    check(run["join_row_hits"] > 0 and run["pack_canonical_wire"] > 0,
+          "evidence ran K1a and K4")
+    say(f"  {len(seqs)} reads; alt support "
+        f"{[r['alt']['support'] for r in rows[:-1]]}, supporting reads "
+        f"{json.dumps(written)}: equal to golden; launches {json.dumps(run)}")
 
 
 def main() -> int:
@@ -371,10 +614,15 @@ def main() -> int:
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
     genome = rng.integers(0, 4, GENOME_BP).astype(np.uint8)
-    rows = phase_kernels(torch, dev, rng, genome)
+    panel = make_panel(genome, args.seed)
+    rows = phase_kernels(torch, dev, rng, genome, panel)
     with tempfile.TemporaryDirectory() as tmp:
-        launches, e2e = phase_main_path(torch, rng, genome, tmp)
-    say(f"e2e: {json.dumps(e2e)}")
+        fx = write_fixture(rng, genome, tmp)
+        launches, e2e = phase_main_path(torch, fx, tmp)
+        launches["join_row_hits"], scan = phase_scan(torch, fx, panel, tmp)
+        phase_evidence(torch, genome, tmp, args.seed)
+    say(f"e2e kmerize: {json.dumps(e2e)}")
+    say(f"e2e scan: {json.dumps(scan)}")
     check("jax" not in sys.modules, "no jax imported")
 
     say(card_line())

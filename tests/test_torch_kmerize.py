@@ -129,7 +129,8 @@ def test_device_cuda_without_cuda_exits_1(fastq, tmp_path, capsys,
 def test_port_imports_no_jax():
     """The conftest imports jax in-process, so check in a fresh one."""
     code = ("import sys; import zotpu_torch, zotpu_torch.cli, "
-            "zotpu_torch.workloads.kmerize, zotpu_torch.kernels; "
+            "zotpu_torch.workloads.kmerize, zotpu_torch.kernels, "
+            "zotpu_torch.workloads.pulldown; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     env = {**os.environ, "PYTHONPATH": REPO}

@@ -1,9 +1,10 @@
 """Build and load the CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, loaded with ``ctypes``. The library's name carries a hash of the
-sources and flags, so an edited source is rebuilt and a stale binary is never
-loaded (the scheme of zotpu/io/native.py). Output goes to
+``nvcc`` compiles every source to an object file, one process per source,
+all started together, and links the objects into one shared library with a
+plain C interface, loaded with ``ctypes``. The library's name carries a
+hash of the sources and flags, so an edited source is rebuilt and a stale
+binary is never loaded (the scheme of zotpu/io/native.py). Output goes to
 ``zotpu_torch/_build/``. A failed build raises: there is no fallback.
 """
 
@@ -15,6 +16,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 
@@ -22,7 +24,7 @@ _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_longlong
@@ -38,6 +40,7 @@ _SIGNATURES = {
     "zt_set_op_scratch_elems": (_I64, [_I64, _I64]),
     "zt_set_op": (_I32, [_I32, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P,
                          _P, _P, _P]),
+    "zt_join_row_hits": (_I32, [_P, _I64, _P, _I64, _I32, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -77,14 +80,30 @@ def build() -> tuple[str, float]:
     if os.path.exists(so):
         return so, 0.0
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{so}.tmp{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp,
-           *[s for s in _sources() if s.endswith(".cu")]]
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{' '.join(cmd)}"
-                           f"\n{res.stdout}{res.stderr}")
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as objdir:
+        jobs = []
+        for src in (s for s in _sources() if s.endswith(".cu")):
+            obj = os.path.join(objdir, os.path.basename(src) + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+            jobs.append((cmd, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, _, proc in jobs:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}):\n"
+                              f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        cmd = [nvcc, "-shared", "-o", tmp, *[obj for _, obj, _ in jobs]]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({res.returncode}):\n"
+                               f"{' '.join(cmd)}\n{res.stdout}{res.stderr}")
     os.replace(tmp, so)
     return so, time.perf_counter() - t0
 

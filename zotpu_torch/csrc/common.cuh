@@ -1,7 +1,8 @@
 // Definitions shared by the zotpu_torch CUDA kernels (pack.cu, dedup.cu,
-// merge.cu, scan.cu). Keys are int64 packed canonical k-mers (< 2^62) with
-// INT64_MAX as the padding sentinel, so it sorts last; counts are int64
-// holding u32 values that saturate at COUNT_MAX (zotpu/semantics.py).
+// merge.cu, scan.cu, join.cu). Keys are int64 packed canonical k-mers
+// (< 2^62) with INT64_MAX as the padding sentinel, so it sorts last; counts
+// are int64 holding u32 values that saturate at COUNT_MAX
+// (zotpu/semantics.py).
 #pragma once
 
 #include <cuda_runtime.h>

@@ -3,6 +3,7 @@ version. ``KERNELS`` maps a kernel's name to its wrapper; every wrapper
 counts its launches in ``.launches`` (CPU calls run the plain version and do
 not count)."""
 
+from zotpu_torch.kernels.join import row_hits_sorted_join
 from zotpu_torch.kernels.merge_fused import set_op_fused
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.kernels.sortdedup import dedup_compact
@@ -12,6 +13,7 @@ KERNELS = {
     "pack_canonical": pack_canonical,
     "dedup_compact": dedup_compact,
     "set_op_fused": set_op_fused,
+    "join_row_hits": row_hits_sorted_join,
 }
 
 

@@ -44,7 +44,7 @@ class Stats:
         return dataclasses.asdict(self)
 
 
-def _host_tensors(batch, wire_pack: bool, pin: bool):
+def host_tensors(batch, wire_pack: bool, pin: bool):
     """A parsed batch as host tensors: (packed, mask, lengths) wire words
     (u32 bit patterns as int32) or (codes, lengths); pinned when ``pin``."""
     if wire_pack:
@@ -70,7 +70,7 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
     def parse_one(path):
         for batch in fastq.parse_batches(path, batch_reads, max_len,
                                          halo=k - 1):
-            yield batch, _host_tensors(batch, wire_pack, pin)
+            yield batch, host_tensors(batch, wire_pack, pin)
 
     def count(batch, last_id):
         rids = batch.record_ids[:batch.n_reads]

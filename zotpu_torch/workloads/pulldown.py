@@ -1,0 +1,145 @@
+"""Panel pulldown / scan workload (BASELINE config 5), single device.
+
+Port of zotpu/workloads/pulldown.py ``scan_batch``, ``scan_batch_wire``,
+``panel_to_device``, ``RecordAggregator`` and ``pulldown_paths``. The panel
+lives on the device as a sorted SENTINEL-padded int64 tensor. Per batch the
+device runs the pack kernel (K1; the wire form when ``max_len % 32 == 0``,
+u8 codes otherwise) and the membership join (K4), and only the per-row hit
+counts come back to the host, where rows re-aggregate into records.
+
+One prefetched stream runs over every sample, so parsing the next sample
+overlaps the device work of this one. On CUDA each batch goes up from
+pinned host memory on a side stream (as in workloads/kmerize.py), and its
+row hits come down into pinned memory behind an event; the host aggregates
+batch i-1 while the card works on batch i. The hash-sharded and multi-host
+pulldown (``pulldown_paths_sharded``) is not yet ported.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from zotpu.io import fastq
+from zotpu.io.prefetch import prefetch
+from zotpu_torch.kernels.join import row_hits_sorted_join
+from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
+from zotpu_torch.keys import SENTINEL
+from zotpu_torch.workloads.kmerize import host_tensors
+
+
+def scan_batch(codes, lengths, panel, k: int):
+    """(R, L) u8 codes vs the device panel -> (R,) int32 per-row hits."""
+    R, L = codes.shape
+    keys = pack_canonical(codes, lengths, k)
+    return row_hits_sorted_join(panel, keys, R, L - k + 1)
+
+
+def scan_batch_wire(packed, mask, lengths, panel, k: int):
+    """scan_batch over the 0.375 B/base wire form (zotpu/io/wire.py)."""
+    R, W = packed.shape
+    keys = pack_canonical_wire(packed, mask, lengths, k)
+    return row_hits_sorted_join(panel, keys, R, 16 * W - k + 1)
+
+
+def panel_to_device(keys: np.ndarray, device="cpu"):
+    """Sorted u64 panel keys -> int64 tensor on device, SENTINEL-padded to
+    the next power of two (at least 8)."""
+    keys = np.asarray(keys, np.uint64)
+    n = len(keys)
+    cap = max(1 << (n - 1).bit_length(), 8) if n else 8
+    if n and keys.max() >= np.uint64(1 << 62):
+        raise ValueError("panel key >= 2**62 (not a packed k-mer)")
+    out = np.full(cap, SENTINEL, np.int64)
+    out[:n] = keys.astype(np.int64)
+    return torch.from_numpy(out).to(device)
+
+
+class RecordAggregator:
+    """Re-aggregate per-ROW hit counts into per-RECORD counts.
+
+    Overlong records are halo-chunked into several rows (possibly spanning
+    batch boundaries), and counting rows would overstate reads_with_hits /
+    misalign per-read output. Chunk halos never duplicate a k-mer start
+    position, so summing row hits per record is exact. (A copy of
+    zotpu.workloads.pulldown.RecordAggregator, whose module imports jax.)"""
+
+    def __init__(self):
+        self.per_read: list[int] = []
+        self._last_id = -1
+
+    def add(self, row_hits: np.ndarray, record_ids: np.ndarray) -> None:
+        # record_ids are non-decreasing; reduce rows -> records in the batch
+        uniq, inv = np.unique(record_ids, return_inverse=True)
+        sums = np.bincount(inv, weights=row_hits).astype(np.int64)
+        for rid, hsum in zip(uniq, sums):
+            if self.per_read and rid == self._last_id:
+                self.per_read[-1] += int(hsum)  # record spans batches
+            else:
+                self.per_read.append(int(hsum))
+                self._last_id = int(rid)
+
+    def result(self) -> tuple[int, int, list[int]]:
+        total = sum(self.per_read)
+        reads_hit = sum(1 for h in self.per_read if h > 0)
+        return total, reads_hit, self.per_read
+
+
+def _iter_scan_batches(paths, batch_reads, max_len, k, wire_pack, pin):
+    """Prefetched (sample index, batch, host tensors) over every sample;
+    the wire pack and pinning run in the prefetch thread."""
+
+    def gen():
+        for idx, path in enumerate(paths):
+            for batch in fastq.parse_batches(path, batch_reads, max_len,
+                                             halo=k - 1):
+                yield idx, batch, host_tensors(batch, wire_pack, pin)
+
+    return prefetch(gen(), depth=2)
+
+
+def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
+                   batch_reads: int = 4096, max_len: int = 256,
+                   device="cuda"):
+    """Per-sample (total_hits, reads_with_hits, per_read_hits list)."""
+    device = torch.device(device)
+    on_cuda = device.type == "cuda"
+    panel = panel_to_device(panel_keys, device=device)
+    wire_pack = max_len % 32 == 0
+    copy_stream = torch.cuda.Stream(device) if on_cuda else None
+    aggs = [RecordAggregator() for _ in sample_paths]
+    pending = None
+
+    def finish(idx, batch, hits, done):
+        if done is not None:
+            done.synchronize()
+        n = batch.n_reads   # padding rows past n_reads are cut off
+        aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
+
+    for idx, batch, host in _iter_scan_batches(
+            sample_paths, batch_reads, max_len, k, wire_pack, on_cuda):
+        done = None
+        if on_cuda:
+            with torch.cuda.stream(copy_stream):
+                dev = tuple(t.to(device, non_blocking=True) for t in host)
+            compute = torch.cuda.current_stream(device)
+            compute.wait_stream(copy_stream)
+            for t in dev:
+                t.record_stream(compute)
+        else:
+            dev = host
+        if wire_pack:
+            hits = scan_batch_wire(*dev, panel, k)
+        else:
+            hits = scan_batch(*dev, panel, k)
+        if on_cuda:
+            hits = torch.empty(hits.shape, dtype=hits.dtype,
+                               pin_memory=True).copy_(hits, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record(compute)
+        if pending is not None:
+            finish(*pending)
+        pending = (idx, batch, hits, done)
+    if pending is not None:
+        finish(*pending)
+    return [agg.result() for agg in aggs]
