@@ -9,7 +9,11 @@ Phases (any failure exits non-zero; no exception is caught):
 2. each kernel against its plain PyTorch version on the same CUDA tensors
    at the main path's shapes (a batch of 65,536 reads x 160, k=25; the
    join against the scan panel of phase 5): exact equality, and both
-   times by CUDA events (median of several runs);
+   times by CUDA events (median of several runs); then (2b) the same kind
+   of batch split over 4 slots on this card and routed by the sharded
+   step's own ``_route``: the receive-tree kernels K5, K6 and K7 and K4's
+   tagged entry on slot 0's received runs (about 8.9M slots), and the
+   cost of the host read of the second-round flag;
 3. the kmerize path at real size: ``python -m zotpu_torch kmerize -k 25``
    on a synthetic E. coli K-12-sized genome (4,641,652 bp) read at 30x
    (150 bp, 0.5% substitutions, a sprinkling of N), checked against an
@@ -30,7 +34,16 @@ Phases (any failure exits non-zero; no exception is caught):
    batch count; then the subset through the u8 path against
    golden.scan_panel;
 6. ``evidence --out-reads`` on spiked reads of a genome slice against
-   golden.kmerize + variants.evidence_from_counts and golden.scan_panel.
+   golden.kmerize + variants.evidence_from_counts and golden.scan_panel;
+7. sharded kmerize (``kmerize_paths_sharded``) of the 30x reads over 4
+   slots on this card, prefix and mixed owner, each equal to phase 3's
+   container (so to the oracle); the counts are reset before each run and
+   K5, K6 and K3 must run; then a forced second round on one slot with a
+   capacity factor of 0.9, which must take the overflow round and stay
+   equal;
+8. sharded scan (``pulldown_paths_sharded``) of the 16 samples over 4
+   slots, equal per sample and per read to the single-device
+   ``pulldown_paths``; K7 and K4's tagged entry must run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's launches, error and times.
@@ -76,7 +89,17 @@ KERNEL_INFO = {
                      "zotpu/kernels/merge_fused.py:609"),
     "join_row_hits": ("zotpu_torch/csrc/join.cu",
                       "zotpu/kernels/sort_pallas.py:676"),
+    "join_row_hits_tagged": ("zotpu_torch/csrc/join.cu",
+                             "zotpu/kernels/sort_pallas.py:676"),
+    "merge_runs": ("zotpu_torch/csrc/merge_runs.cu",
+                   "zotpu/kernels/sort_pallas.py:900"),
+    "merge_dedup": ("zotpu_torch/csrc/merge_runs.cu",
+                    "zotpu/kernels/dedup_pallas.py:383"),
+    "merge_runs_payload": ("zotpu_torch/csrc/merge_runs.cu",
+                           "zotpu/kernels/sort_pallas.py:330"),
 }
+SHARDS = 4                     # D slots on one card
+SHARD_CF = 4.0                 # kmerize_paths_sharded's capacity factor
 
 
 def check(cond, what):
@@ -110,6 +133,25 @@ def cuda_ms(torch, fn, reps=7, warm=2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def measure(torch, name, kernel, plain):
+    """A kernel against its plain version on the same inputs: exact
+    equality of every output (a None output, such as an absent payload,
+    must be None on both sides), then both times by CUDA events."""
+    got, want = kernel(), plain()
+    torch.cuda.synchronize()
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    check([g is None for g in got] == [w is None for w in want],
+          f"{name}: outputs present on one side only")
+    err = max_abs_err(torch, [g for g in got if g is not None],
+                      [w for w in want if w is not None])
+    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+    say(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms (CUDA events, median)")
+    check(err == 0, f"{name} differs from its plain version")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -202,6 +244,26 @@ def device_timeline(torch, prof):
     return busy, sorted(rows.items(), key=lambda kv: -kv[1])[:5]
 
 
+def profiled(torch, fn):
+    """A warm rerun of fn under torch.profiler: prints and returns its wall
+    seconds and the device's busy microseconds on the trace timeline
+    (None when the trace holds no device event)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    busy_us, top = device_timeline(torch, prof)
+    busy = ("not measured (no device event in the trace)" if busy_us is None
+            else f"{busy_us / 1e3:.3f} ms, idle share "
+                 f"{1 - busy_us / 1e6 / wall:.4f}")
+    say(f"  profiled warm rerun: wall {wall:.3f} s, device busy {busy}; "
+        f"top device rows (us): "
+        f"{json.dumps([[n[:40], round(t, 1)] for n, t in top])}")
+    return wall, busy_us
+
+
 def phase_kernels(torch, dev, rng, genome, panel):
     """Phase 2: kernel vs plain at the main path's shapes."""
     from zotpu.io import wire
@@ -221,24 +283,13 @@ def phase_kernels(torch, dev, rng, genome, panel):
     say(f"phase 2: batch {BATCH_READS} x {MAX_LEN}, k={K}, "
         f"{BATCH_READS * (MAX_LEN - K + 1)} windows")
 
-    def measure(name, kernel, plain):
-        got, want = kernel(), plain()
-        torch.cuda.synchronize()
-        got = got if isinstance(got, tuple) else (got,)
-        want = want if isinstance(want, tuple) else (want,)
-        err = max_abs_err(torch, got, want)
-        ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
-        say(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
-            f"plain {plain_ms:.4f} ms (CUDA events, median)")
-        check(err == 0, f"{name} differs from its plain version")
-        return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
-
     rows["pack_canonical_wire"] = measure(
-        "pack_canonical_wire (K1a)",
+        torch, "pack_canonical_wire (K1a)",
         lambda: P.pack_canonical_wire(p, m, n, K),
         lambda: P.pack_canonical_wire_plain(p, m, n, K))
     rows["pack_canonical"] = measure(
-        "pack_canonical (K1b)", lambda: P.pack_canonical(c, n, K),
+        torch, "pack_canonical (K1b)",
+        lambda: P.pack_canonical(c, n, K),
         lambda: P.pack_canonical_plain(c, n, K))
 
     keys = P.pack_canonical_wire(p, m, n, K)
@@ -246,7 +297,8 @@ def phase_kernels(torch, dev, rng, genome, panel):
     sort_ms = cuda_ms(torch, lambda: torch.sort(keys))
     say(f"  torch.sort of {keys.shape[0]} int64 keys: {sort_ms:.4f} ms")
     rows["dedup_compact"] = measure(
-        "dedup_compact (K2)", lambda: D.dedup_compact(sorted_keys),
+        torch, "dedup_compact (K2)",
+        lambda: D.dedup_compact(sorted_keys),
         lambda: D.dedup_compact_plain(sorted_keys))
 
     panel_t = panel_to_device(panel, device=dev)
@@ -254,7 +306,7 @@ def phase_kernels(torch, dev, rng, genome, panel):
         f"{panel_t.shape[0]}")
     m_row = MAX_LEN - K + 1
     rows["join_row_hits"] = measure(
-        "join_row_hits (K4)",
+        torch, "join_row_hits (K4)",
         lambda: J.row_hits_sorted_join(panel_t, keys, BATCH_READS, m_row),
         lambda: J.row_hits_plain(panel_t, keys, BATCH_READS, m_row))
     hits = J.row_hits_sorted_join(panel_t, keys, BATCH_READS, m_row)
@@ -271,7 +323,7 @@ def phase_kernels(torch, dev, rng, genome, panel):
     say(f"  set_op_fused inputs: n_a={int(na)} n_b={int(nb)} of "
         f"{ka.shape[0]} each")
     for op in ("merge", "union", "intersect", "diff"):
-        r = measure(f"set_op_fused op={op} (K3)",
+        r = measure(torch, f"set_op_fused op={op} (K3)",
                     lambda: M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
                     lambda: M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb))
         if op == "merge":
@@ -288,6 +340,203 @@ def phase_kernels(torch, dev, rng, genome, panel):
     say(f"  H2D of one batch's wire words ({packed.nbytes} B, pinned): "
         f"{h2d_ms:.4f} ms")
     return rows
+
+
+def phase_shard_kernels(torch, dev, rng, genome, panel):
+    """Phase 2b: K5, K6, K7 and K4's tagged entry against their plain
+    versions at one full batch's shapes: the batch of phase 2 split over
+    SHARDS slots on this card, sorted and routed by the sharded step's own
+    _route (prefix owner, SHARD_CF), then slot 0's received runs."""
+    from zotpu.io import wire
+    from zotpu_torch.dist import shuffle as SH
+    from zotpu_torch.dist.mesh import make_mesh
+    from zotpu_torch.kernels import join as J
+    from zotpu_torch.kernels import merge_dedup as MD
+    from zotpu_torch.kernels import merge_runs as MR
+    from zotpu_torch.kernels import pack as P
+    from zotpu_torch.keys import SENTINEL
+
+    rows = {}
+    mesh = make_mesh(devices=[dev] * SHARDS)
+    codes, lengths = batch_codes(rng, genome, BATCH_READS)
+    packed, mask = wire.pack_codes(codes)
+    keys = P.pack_canonical_wire(
+        torch.from_numpy(packed.view(np.int32)).to(dev),
+        torch.from_numpy(mask.view(np.int32)).to(dev),
+        torch.from_numpy(lengths).to(dev), K)
+    m_row = MAX_LEN - K + 1
+    m_local = BATCH_READS // SHARDS * m_row
+    cap = int(np.ceil(m_local * SHARD_CF / SHARDS))
+    cap2 = (cap + 3) // 4
+    rid = torch.arange(BATCH_READS, device=dev).repeat_interleave(m_row)
+    sk, sr = [], []
+    for d in range(SHARDS):
+        k_d, order = torch.sort(keys[d * m_local:(d + 1) * m_local])
+        sk.append(k_d)
+        sr.append(rid[d * m_local:(d + 1) * m_local][order])
+    routed = SH._route(mesh, sk, K, cap, payload=sr, capacity2=cap2)
+    check(not routed.need2 and all(int(o) == 0 for o in routed.overflow),
+          "the full batch routes in the first round")
+    rk, rt = routed.keys[0], routed.pay[0]
+    n_valid = int((rk != SENTINEL).sum())
+    say(f"phase 2b: {SHARDS} slots on one card, batch {BATCH_READS} x "
+        f"{MAX_LEN}, k={K}: {m_local} keys a slot, cap {cap}, slot 0 "
+        f"receives {rk.shape[0]} slots ({n_valid} valid) in {SHARDS} runs")
+
+    rows["merge_runs"] = measure(
+        torch, f"merge_runs_pass run={cap} (K5)",
+        lambda: MR.merge_runs_pass(rk, None, cap),
+        lambda: MR.merge_plain(rk, None, 2 * cap, cap))
+    half, _ = MR.merge_runs_pass(rk, None, cap)
+    rows["merge_dedup"] = measure(
+        torch, f"merge_dedup_pass run={2 * cap} (K6)",
+        lambda: MD.merge_dedup_pass(half, 2 * cap),
+        lambda: MD.merge_dedup_plain(half, 2 * cap))
+    rows["merge_runs_payload"] = measure(
+        torch, f"merge_runs_pass run={cap} with row ids (K7)",
+        lambda: MR.merge_runs_pass(rk, rt, cap),
+        lambda: MR.merge_plain(rk, rt, 2 * cap, cap))
+    qk, qt = SH.merge_received_runs_tag(rk, rt, SHARDS, cap, 0)
+    prow, pcap = SH.partition_panel(panel, K, SHARDS)
+    p0 = torch.from_numpy(prow[0]).to(dev)
+    rows["join_row_hits_tagged"] = measure(
+        torch, f"row_hits_tagged, {qk.shape[0]} probes vs a {pcap}-key "
+        f"panel row (K4 tagged)",
+        lambda: J.row_hits_tagged(p0, qk, qt, BATCH_READS),
+        lambda: J.row_hits_tagged_plain(p0, qk, qt, BATCH_READS))
+
+    # the host read of the second-round flag: route with and without it
+    def route(c2):
+        return lambda: SH._route(mesh, sk, K, cap, capacity2=c2)
+
+    def host_ms(fn, reps=7):
+        fn()
+        torch.cuda.synchronize()
+        times = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    with_flag, without = host_ms(route(cap2)), host_ms(route(0))
+    say(f"  _route of the batch over {SHARDS} slots (host clock, median): "
+        f"{with_flag:.4f} ms with the second-round flag read, "
+        f"{without:.4f} ms without")
+    return rows
+
+
+def phase_sharded_kmerize(torch, fx, tmp):
+    """Phase 7: kmerize_paths_sharded with SHARDS slots on this card, once
+    per owner function, against the single-device container of phase 3;
+    then a forced second round on one slot with a capacity factor below
+    1. Returns K5's and K6's launches in the prefix run."""
+    from zotpu import semantics as S
+    from zotpu.io import container
+    from zotpu_torch import kernels
+    from zotpu_torch.dist import shuffle as SH
+    from zotpu_torch.workloads import kmerize as W
+
+    want = container.read(os.path.join(tmp, "ecoli30x.zkf"))
+    slots = [torch.device("cuda")] * SHARDS
+    say(f"phase 7: sharded kmerize, {SHARDS} slots on one card, "
+        f"--batch-reads {BATCH_READS} --max-len {MAX_LEN}")
+    counts = {}
+    for shard_hash in ("prefix", "mixed"):
+        stats = W.Stats()
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        keys, cnts = W.kmerize_paths_sharded(
+            [fx["fq"]], K, SHARDS, batch_reads=BATCH_READS, max_len=MAX_LEN,
+            stats=stats, capacity_factor=SHARD_CF, shard_hash=shard_hash,
+            devices=slots)
+        wall = time.perf_counter() - t0
+        run = kernels.launches()
+        check(np.array_equal(keys, want.keys)
+              and np.array_equal(cnts, want.counts),
+              f"sharded kmerize ({shard_hash}) equals the single-device "
+              f"container")
+        say(f"  {shard_hash}: wall {wall:.3f} s, "
+            f"{stats.bases / wall:.6e} bases/s, {stats.batches} batches, "
+            f"unique {stats.unique}, routed_per_shard "
+            f"{stats.routed_per_shard}, second rounds {stats.second_rounds}"
+            f"; equal to the single-device port; launches "
+            f"{json.dumps(run)}")
+        for name in ("merge_runs", "merge_dedup", "set_op_fused",
+                     "pack_canonical_wire"):
+            check(run[name] > 0, f"{name} launched in the sharded run")
+        if shard_hash == "prefix":
+            counts = {"merge_runs": run["merge_runs"],
+                      "merge_dedup": run["merge_dedup"]}
+        profiled(torch, lambda: W.kmerize_paths_sharded(
+            [fx["fq"]], K, SHARDS, batch_reads=BATCH_READS, max_len=MAX_LEN,
+            capacity_factor=SHARD_CF, shard_hash=shard_hash, devices=slots))
+    # the mixed run's host tail: its slots' key ranges interleave, so
+    # gather_global re-sorts the whole set on the host
+    owner = np.minimum(S.routing_mix32(*S.split_hi_lo(want.keys))
+                       >> np.uint32(33 - SHARDS.bit_length()), SHARDS - 1)
+    parts = [np.flatnonzero(owner == d) for d in range(SHARDS)]
+    t0 = time.perf_counter()
+    keys, cnts = SH.gather_global(
+        [want.keys[i].astype(np.int64) for i in parts],
+        [want.counts[i].astype(np.int64) for i in parts],
+        [len(i) for i in parts], reorder=True)
+    say(f"  mixed host reorder (gather_global, {len(keys)} keys): "
+        f"{time.perf_counter() - t0:.3f} s")
+    check(np.array_equal(keys, want.keys), "reorder restores the set")
+    stats = W.Stats()
+    kernels.reset_launches()
+    keys, cnts = W.kmerize_paths_sharded(
+        [fx["fq"]], K, 1, batch_reads=BATCH_READS, max_len=MAX_LEN,
+        stats=stats, capacity_factor=0.9, force_second_round=True,
+        devices=slots[:1])
+    run = kernels.launches()
+    check(np.array_equal(keys, want.keys)
+          and np.array_equal(cnts, want.counts),
+          "the forced second round equals the single-device container")
+    check(stats.second_rounds > 0 and run["merge_dedup"] > 0,
+          "the second-round subtree ran")
+    say(f"  forced second round (1 slot, capacity factor 0.9): "
+        f"{stats.second_rounds} of {stats.batches} batches took it; "
+        f"equal; launches {json.dumps(run)}")
+    return counts
+
+
+def phase_sharded_scan(torch, fx, panel):
+    """Phase 8: pulldown_paths_sharded with SHARDS slots on this card
+    against the single-device pulldown_paths, per sample and per read.
+    Returns K7's and K4 tagged's launches."""
+    from zotpu_torch import kernels
+    from zotpu_torch.workloads import pulldown as P
+
+    samples = fx["samples"]
+    want = P.pulldown_paths(panel, samples, K, batch_reads=BATCH_READS,
+                            max_len=MAX_LEN, device="cuda")
+    say(f"phase 8: sharded scan, {SHARDS} slots on one card, "
+        f"{N_SAMPLES} samples")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = P.pulldown_paths_sharded(
+        panel, samples, K, SHARDS, batch_reads=BATCH_READS, max_len=MAX_LEN,
+        capacity_factor=SHARD_CF, devices=[torch.device("cuda")] * SHARDS)
+    wall = time.perf_counter() - t0
+    run = kernels.launches()
+    check(got == want, "sharded scan equals the single-device scan")
+    check(run["merge_runs_payload"] > 0 and run["join_row_hits_tagged"] > 0,
+          "the sharded scan ran K7 and K4 tagged")
+    bases = fx["bases"]
+    say(f"  wall {wall:.3f} s, {bases / wall:.6e} bases/s, "
+        f"{sum(g[0] for g in got)} hits: every sample's lines and per-read "
+        f"hits equal the single-device scan; launches {json.dumps(run)}")
+    pwall, busy_us = profiled(torch, lambda: P.pulldown_paths_sharded(
+        panel, samples, K, SHARDS, batch_reads=BATCH_READS, max_len=MAX_LEN,
+        capacity_factor=SHARD_CF, devices=[torch.device("cuda")] * SHARDS))
+    return ({"merge_runs_payload": run["merge_runs_payload"],
+             "join_row_hits_tagged": run["join_row_hits_tagged"]},
+            {"wall_s": wall, "bases_per_s": bases / wall,
+             "profiled_wall_s": pwall,
+             "device_busy_ms": None if busy_us is None else busy_us / 1e3})
 
 
 def write_fixture(rng, genome, tmp):
@@ -319,7 +568,7 @@ def write_fixture(rng, genome, tmp):
         f"({n_reads * READ_LEN} bases), once whole and once as "
         f"{N_SAMPLES} samples, in {time.perf_counter() - t0:.1f} s")
     return {"fq": fq, "sub_fq": sub_fq, "subset": subset,
-            "samples": samples}
+            "samples": samples, "bases": n_reads * READ_LEN}
 
 
 def phase_main_path(torch, fx, tmp):
@@ -504,22 +753,11 @@ def phase_scan(torch, fx, panel, tmp):
                                   True):
         pass
     hwall = time.perf_counter() - t0
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        run_cli(["scan", "--batch-reads", BATCH_READS, "--max-len", MAX_LEN,
-                 pz, *samples])
-        pwall = time.perf_counter() - t0
-    busy_us, top = device_timeline(torch, prof)
-    busy = ("not measured (no device event in the trace)" if busy_us is None
-            else f"{busy_us / 1e3:.3f} ms, idle share "
-                 f"{1 - busy_us / 1e6 / pwall:.4f}")
     say(f"  host pipeline alone (parse + wire pack + pin, {N_SAMPLES} "
         f"samples): {hwall:.3f} s, {bases / hwall:.6e} bases/s")
-    say(f"  profiled warm rerun: wall {pwall:.3f} s, device busy {busy}; "
-        f"top device rows (us): "
-        f"{json.dumps([[n[:40], round(t, 1)] for n, t in top])}")
+    pwall, busy_us = profiled(torch, lambda: run_cli(
+        ["scan", "--batch-reads", BATCH_READS, "--max-len", MAX_LEN, pz,
+         *samples]))
 
     kernels.reset_launches()
     lines = run_cli(["scan", "--batch-reads", 1024, "--max-len", READ_LEN,
@@ -616,13 +854,18 @@ def main() -> int:
     genome = rng.integers(0, 4, GENOME_BP).astype(np.uint8)
     panel = make_panel(genome, args.seed)
     rows = phase_kernels(torch, dev, rng, genome, panel)
+    rows.update(phase_shard_kernels(torch, dev, rng, genome, panel))
     with tempfile.TemporaryDirectory() as tmp:
         fx = write_fixture(rng, genome, tmp)
         launches, e2e = phase_main_path(torch, fx, tmp)
         launches["join_row_hits"], scan = phase_scan(torch, fx, panel, tmp)
         phase_evidence(torch, genome, tmp, args.seed)
+        launches.update(phase_sharded_kmerize(torch, fx, tmp))
+        sharded, sscan = phase_sharded_scan(torch, fx, panel)
+        launches.update(sharded)
     say(f"e2e kmerize: {json.dumps(e2e)}")
     say(f"e2e scan: {json.dumps(scan)}")
+    say(f"e2e sharded scan: {json.dumps(sscan)}")
     check("jax" not in sys.modules, "no jax imported")
 
     say(card_line())

@@ -150,3 +150,187 @@ def test_scan_cli_cuda_matches_golden(dev, tmp_path, capsys, max_len):
                 if x.startswith(path + "\t")]
         assert rows == [int(h) for h in w]
         assert w.sum() > 0
+
+
+def _runs(rng, n_runs, run, space, frac_valid):
+    """n_runs ascending int64 runs of ``run`` keys from [0, space), each
+    with a SENTINEL tail past a random share of about frac_valid."""
+    out = []
+    for _ in range(n_runs):
+        r = np.sort(rng.integers(0, space, run))
+        r[int(rng.integers(0, run + 1) * frac_valid):] = SENTINEL
+        out.append(r)
+    return np.concatenate(out) if out else np.zeros(0, np.int64)
+
+
+@pytest.mark.parametrize("pay", [False, True])
+@pytest.mark.parametrize("n_runs,run,space,frac", [
+    (2, 1, 5, 1.0), (8, 3, 4, 0.8), (4, 1000, 7, 1.0),
+    (4, 3000, 1 << 40, 0.9), (2, 5000, 1 << 40, 0.0)])
+def test_merge_runs_kernel_matches_plain(dev, pay, n_runs, run, space, frac):
+    """K5 (keys only) and K7 (int64 payload): every pass of a tree and one
+    unequal pair, against the stable-sort plain version. Equal-key
+    segments longer than a block (a key space of 4-7 over 4000 keys) and
+    all-sentinel runs included; A stays first on ties, so the payloads
+    match exactly."""
+    from zotpu_torch.kernels import merge_runs as MR
+    rng = np.random.default_rng(n_runs * run + pay)
+    keys = torch.from_numpy(_runs(rng, n_runs, run, space, frac)).to(dev)
+    tags = (torch.from_numpy(rng.integers(0, 1 << 40, keys.shape[0])).to(dev)
+            if pay else None)
+    counter = MR.WITH_PAYLOAD if pay else MR.KEYS_ONLY
+    r = run
+    while r < keys.shape[0]:
+        before = counter.launches
+        got = MR.merge_runs_pass(keys, tags, r)
+        want = MR.merge_plain(keys, tags, 2 * r, r)
+        assert counter.launches == before + 1
+        assert torch.equal(got[0], want[0])
+        assert (got[1] is None) == (not pay)
+        if pay:
+            assert torch.equal(got[1], want[1])
+        keys, tags = got
+        r *= 2
+    tail = torch.from_numpy(_runs(rng, 1, run + 7, space, frac)).to(dev)
+    ttag = None if tags is None else torch.arange(tail.shape[0], device=dev)
+    pairs = [(keys, tags, tail, ttag), (tail, ttag, tail[:0], None),
+             (tail[:0], None, tail, ttag)]
+    for ka, ta, kb, tb in pairs:
+        both = torch.cat([ka, kb])
+        tboth = None if tags is None else torch.cat(
+            [ta if ta is not None else tb[:0], tb if tb is not None
+             else ta[:0]])
+        got = MR.merge_runs_pair(both, tboth, ka.shape[0])
+        want = MR.merge_plain(both, tboth, max(both.shape[0], 1),
+                              ka.shape[0])
+        for g, w in zip(got, want):
+            assert (g is None and w is None) or torch.equal(g, w)
+
+
+@pytest.mark.parametrize("nA,nB,space,frac", [
+    (1, 0, 3, 1.0), (4096, 0, 5, 1.0), (3000, 5000, 3, 1.0),
+    (70000, 70000, 1 << 20, 0.7), (2048, 2048, 1 << 40, 0.0),
+    (0, 5000, 9, 0.5)])
+def test_merge_dedup_kernel_matches_plain(dev, nA, nB, space, frac):
+    """K6 against merge + K2's plain version: raw keys with duplicates on
+    both sides, segments spanning many blocks (3 keys over 8000), nB = 0
+    (a single-run dedup), empty A, all-sentinel runs."""
+    from zotpu_torch.kernels import merge_dedup as MD
+    rng = np.random.default_rng(nA + nB)
+    keys = np.concatenate([_runs(rng, 1, nA, space, frac) if nA else
+                           np.zeros(0, np.int64),
+                           _runs(rng, 1, nB, space, frac) if nB else
+                           np.zeros(0, np.int64)])
+    kd = torch.from_numpy(keys).to(dev)
+    before = MD.merge_dedup_pair.launches
+    got = MD.merge_dedup_pair(kd, nA)
+    assert MD.merge_dedup_pair.launches == before + 1
+    for g, w in zip(got, MD.merge_dedup_plain(kd, nA)):
+        assert torch.equal(g, w)
+    if nA == nB:
+        for g, w in zip(MD.merge_dedup_pass(kd, nA), got):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("n,n_rows,n_panel", [(1, 1, 8), (5000, 37, 0),
+                                              (200000, 4096, 70000)])
+def test_row_hits_tagged_kernel_matches_plain(dev, n, n_rows, n_panel):
+    """K4's tagged entry against the sort-merge plain version: any row
+    population, sentinel probes with tag 0, tags past n_rows ignored."""
+    rng = np.random.default_rng(n + n_rows)
+    pool = rng.integers(0, 1 << 20, n)
+    panel_keys = np.unique(np.concatenate(
+        [rng.choice(pool, n_panel // 2), rng.integers(0, 1 << 20, n_panel)]
+    ))[:n_panel] if n_panel else np.zeros(0, np.int64)
+    probes = pool.copy()
+    tags = rng.integers(0, n_rows + 2, n)
+    sent = rng.random(n) < 0.2
+    probes[sent], tags[sent] = SENTINEL, 0
+    order = np.argsort(probes, kind="stable")
+    panel = TPD.panel_to_device(panel_keys.astype(np.uint64), device=dev)
+    p = torch.from_numpy(probes[order]).to(dev)
+    t = torch.from_numpy(tags[order]).to(dev)
+    before = TJ.row_hits_tagged.launches
+    got = TJ.row_hits_tagged(panel, p, t, n_rows)
+    assert TJ.row_hits_tagged.launches == before + 1
+    assert torch.equal(got, TJ.row_hits_tagged_plain(panel, p, t, n_rows))
+
+
+@pytest.mark.parametrize("shard_hash", ["prefix", "mixed"])
+def test_sharded_kmerize_and_scan_on_card_slots(dev, tmp_path, shard_hash):
+    """Sharded kmerize and scan with 4 slots on one card against golden;
+    the receive tree ran K5 and K6, the accumulator K3, the scan K7 and
+    K4's tagged entry. A capacity factor below 1 takes the overflow
+    round and stays exact."""
+    from zotpu_torch import kernels
+    from zotpu_torch.workloads import kmerize as TW
+    rng = np.random.default_rng(7)
+    genome = rng.choice(list("ACGT"), size=30000)
+    reads = ["".join(genome[o:o + 150]) for o in rng.integers(0, 29850, 3000)]
+    fq = tmp_path / "r.fastq"
+    fq.write_text("".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                          for i, r in enumerate(reads)))
+    want_k, want_c = G.kmerize(25, reads)
+    slots = [dev] * 4
+    # prefix owners of canonical keys are skewed toward slot 0, so the
+    # overflow round needs less slack there than under the mixed hash
+    for cf, second in ((4.0, False),
+                       (1.5 if shard_hash == "prefix" else 0.9, True)):
+        kernels.reset_launches()
+        stats = TW.Stats()
+        keys, counts = TW.kmerize_paths_sharded(
+            [str(fq)], 25, 4, batch_reads=1024, max_len=160, stats=stats,
+            capacity_factor=cf, shard_hash=shard_hash, devices=slots)
+        run = kernels.launches()
+        assert np.array_equal(keys, want_k) and np.array_equal(counts,
+                                                               want_c)
+        assert run["merge_runs"] > 0 and run["merge_dedup"] > 0
+        assert run["set_op_fused"] > 0
+        assert (stats.second_rounds > 0) == second
+    panel_k, _ = G.kmerize(25, ["".join(genome[:8000])])
+    kernels.reset_launches()
+    res = TPD.pulldown_paths_sharded(panel_k, [str(fq)], 25, 4,
+                                     batch_reads=1024, max_len=160,
+                                     shard_hash=shard_hash, devices=slots)
+    run = kernels.launches()
+    assert res[0][2] == [int(h) for h in G.scan_panel(25, panel_k, reads)]
+    assert run["merge_runs_payload"] > 0 and run["join_row_hits_tagged"] > 0
+
+
+def test_sharded_cli_on_distinct_cards(dev, tmp_path, capsys):
+    """kmerize and scan --shards 4 on cuda:0..3 (four cards: the mesh
+    copies buckets between cards and every kernel launches on its slot's
+    card) against the single-card run; skips with fewer than 4 cards."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    rng = np.random.default_rng(4)
+    genome = rng.choice(list("ACGT"), size=30000)
+    reads = ["".join(genome[o:o + 150]) for o in rng.integers(0, 29850, 3000)]
+    fq = tmp_path / "r.fastq"
+    fq.write_text("".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                          for i, r in enumerate(reads)))
+    panel_k, _ = G.kmerize(25, ["".join(genome[:8000])])
+    pz = tmp_path / "p.zkf"
+    container.write(str(pz), container.KmerSet(k=25, keys=panel_k))
+    flags = ["--batch-reads", "1024", "--max-len", "160"]
+    outs = {}
+    for shards in ("1", "4"):
+        for mode in ("prefix", "mixed"):
+            out = tmp_path / f"k{shards}{mode}.zkf"
+            assert tcli.main(["kmerize", "-k", "25", *flags, "--shards",
+                              shards, "--shard-hash", mode, str(out),
+                              str(fq)]) == 0
+            ks = container.read(str(out))
+            outs[shards, mode] = (ks.keys, ks.counts)
+            capsys.readouterr()
+            assert tcli.main(["scan", *flags, "--shards", shards,
+                              "--shard-hash", mode, "--per-read", str(pz),
+                              str(fq)]) == 0
+            outs[shards, mode, "scan"] = capsys.readouterr().out
+    want_k, want_c = G.kmerize(25, reads)
+    for key, got in outs.items():
+        if len(key) == 2:
+            assert np.array_equal(got[0], want_k), key
+            assert np.array_equal(got[1], want_c), key
+        else:
+            assert got == outs["1", "prefix", "scan"], key

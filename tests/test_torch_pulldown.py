@@ -150,13 +150,19 @@ def test_pulldown_paths_matches_jax(scan_data, tmp_path):
 
 
 def test_scan_multi_device_not_yet_ported(scan_data, capsys):
+    """The multi-host flags still exit 1; --shards N (one process) now
+    runs and prints the single-device lines."""
     d, panel, samples, _ = scan_data
-    for extra in (["--shards", 2], ["--coordinator", "127.0.0.1:1"],
+    for extra in (["--coordinator", "127.0.0.1:1"],
                   ["--num-processes", 2, "--process-id", 0]):
         rc, out, err = _run(tcli.main, ["scan", panel, samples[0],
                                         "--device", "cpu", *extra], capsys)
         assert rc == 1 and out == ""
         assert "not yet ported" in err and "multi-device" in err
+    runs = [_run(tcli.main, ["scan", panel, samples[0], "--device", "cpu",
+                             *extra], capsys) for extra in ([], ["--shards",
+                                                                 2])]
+    assert runs[0][0] == runs[1][0] == 0 and runs[0][1] == runs[1][1]
 
 
 def test_device_cuda_without_cuda_exits_1(scan_data, tmp_path, capsys,

@@ -20,6 +20,8 @@ import tempfile
 import threading
 import time
 
+import torch
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -41,6 +43,11 @@ _SIGNATURES = {
     "zt_set_op": (_I32, [_I32, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P,
                          _P, _P, _P]),
     "zt_join_row_hits": (_I32, [_P, _I64, _P, _I64, _I32, _P, _P]),
+    "zt_join_row_hits_tagged": (_I32, [_P, _I64, _P, _P, _I64, _I64, _P,
+                                       _P]),
+    "zt_merge_runs": (_I32, [_P, _P, _I64, _I64, _I64, _P, _P, _P]),
+    "zt_merge_dedup_scratch_elems": (_I64, [_I64]),
+    "zt_merge_dedup": (_I32, [_P, _I64, _I64, _P, _P, _P, _P, _P]),
 }
 
 _lock = threading.Lock()
@@ -128,3 +135,13 @@ def check(err: int, what: str) -> None:
     if err:
         msg = lib().zt_error_string(err).decode()
         raise RuntimeError(f"{what}: CUDA error {err} ({msg})")
+
+
+def launch(device, name: str, *args) -> None:
+    """Call the C entry point ``name`` with ``args`` and, last, the current
+    stream of ``device``, with ``device`` made the current device (a kernel
+    launched on a stream of another device fails), and raise on a CUDA
+    error."""
+    with torch.cuda.device(device):
+        check(getattr(lib(), name)(
+            *args, torch.cuda.current_stream(device).cuda_stream), name)

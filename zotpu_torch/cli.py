@@ -1,10 +1,12 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m zotpu_torch kmerize -k K [--batch-reads N] [--max-len L]
-        [--merge-capacity N] [--codec C] [--device cuda|cpu] OUT IN...
+        [--merge-capacity N] [--shards N] [--shard-hash prefix|mixed]
+        [--codec C] [--device cuda|cpu] OUT IN...
     python -m zotpu_torch scan [--per-read] [--out-reads FASTQ]
         [--min-hits N] [--host] [--batch-reads N] [--max-len L]
-        [--device cuda|cpu] PANEL SAMPLE...
+        [--shards N] [--shard-hash prefix|mixed] [--device cuda|cpu]
+        PANEL SAMPLE...
     python -m zotpu_torch evidence [--out-reads DIR] [--min-hits N] [--host]
         [--batch-reads N] [--max-len L] [--device cuda|cpu] PANEL SAMPLE...
     python -m zotpu_torch probes -k K REFERENCE OUT VARIANT...
@@ -18,7 +20,12 @@ counterparts. ``--device`` defaults to cuda and never falls back: without
 a CUDA device it exits 1. ``--device cpu`` runs the kernels' plain PyTorch
 versions; ``--host`` runs the golden numpy reference. ``probes``, ``query``
 and ``verify`` are host-only and are the JAX package's own commands.
-``scan --shards N > 1`` and the multi-host flags are not yet ported.
+
+``--shards N`` (a power of two) runs ``kmerize`` and ``scan`` sharded over
+N device slots of one process: ``cuda:0 .. cuda:N-1`` (N above the visible
+card count exits 1), or N CPU slots with ``--device cpu``. The multi-host
+flags (``--coordinator``, ``--num-processes``, ``--process-id``) and
+``kmerize --spill-dir/--resume`` are not yet ported and exit 1.
 """
 
 from __future__ import annotations
@@ -45,14 +52,31 @@ def _device(name: str) -> torch.device:
     return torch.device(name)
 
 
+def _no_multihost(args, command: str) -> None:
+    if args.coordinator or args.num_processes or args.process_id is not None:
+        raise NotImplementedError(
+            f"the multi-host flags (--coordinator, --num-processes, "
+            f"--process-id) are not yet ported to zotpu_torch (multi-device "
+            f"runs across processes); run `python -m zotpu {command}` with "
+            f"them")
+
+
 def cmd_kmerize(args):
     from zotpu_torch.workloads import kmerize as W
+    _no_multihost(args, "kmerize")
     device = _device(args.device)
     stats = W.Stats()
-    keys, counts = W.kmerize_paths(
-        args.inputs, args.k, batch_reads=args.batch_reads,
-        max_len=args.max_len, stats=stats,
-        merge_capacity=args.merge_capacity, device=device)
+    if args.shards > 1:
+        keys, counts = W.kmerize_paths_sharded(
+            args.inputs, args.k, args.shards, batch_reads=args.batch_reads,
+            max_len=args.max_len, stats=stats, spill_dir=args.spill_dir,
+            resume=args.resume, merge_capacity=args.merge_capacity,
+            shard_hash=args.shard_hash, device=device)
+    else:
+        keys, counts = W.kmerize_paths(
+            args.inputs, args.k, batch_reads=args.batch_reads,
+            max_len=args.max_len, spill_dir=args.spill_dir, stats=stats,
+            merge_capacity=args.merge_capacity, device=device)
     container.write(args.output, container.KmerSet(
         k=args.k, keys=keys, counts=counts,
         meta={"tool": "zotpu_torch kmerize", "inputs": args.inputs,
@@ -63,17 +87,11 @@ def cmd_kmerize(args):
 
 
 def cmd_scan(args):
-    """Panel pulldown over read sets (zotpu/cli.py cmd_scan, one device).
-    Overlong reads are halo-chunked into several device rows, and the rows
-    re-aggregate per input record, so totals, reads_with_hits and
-    --per-read rows stay record-aligned."""
-    if (args.shards > 1 or args.coordinator or args.num_processes
-            or args.process_id is not None):
-        raise NotImplementedError(
-            "scan --shards N > 1 and the multi-host flags (--coordinator, "
-            "--num-processes, --process-id) are not yet ported to "
-            "zotpu_torch (the multi-device slice); run `python -m zotpu "
-            "scan --shards N`")
+    """Panel pulldown over read sets (zotpu/cli.py cmd_scan, single
+    controller). Overlong reads are halo-chunked into several device rows,
+    and the rows re-aggregate per input record, so totals, reads_with_hits
+    and --per-read rows stay record-aligned."""
+    _no_multihost(args, "scan")
     device = None if args.host else _device(args.device)
     panel, _ = zotpu_cli._load_padded(args.panel)
     if args.host:
@@ -83,6 +101,12 @@ def cmd_scan(args):
                                 zotpu_cli._read_all_seqs([p]))
             results.append((int(hits.sum()), int((hits > 0).sum()),
                             [int(h) for h in hits]))
+    elif args.shards > 1:
+        from zotpu_torch.workloads import pulldown
+        results = pulldown.pulldown_paths_sharded(
+            panel.keys, args.samples, panel.k, args.shards,
+            batch_reads=args.batch_reads, max_len=args.max_len,
+            shard_hash=args.shard_hash, device=device)
     else:
         from zotpu_torch.workloads import pulldown
         results = pulldown.pulldown_paths(
@@ -235,12 +259,33 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--codec", choices=("raw", "zlib", "delta"),
                         default=None, help="output container codec")
 
+    def shard_flags(sp, what):
+        sp.add_argument("--shards", type=int, default=1,
+                        help=f"{what} across N device slots (power of two; "
+                             f"all-to-all k-mer routing)")
+        sp.add_argument("--shard-hash", choices=("prefix", "mixed"),
+                        default="prefix", dest="shard_hash",
+                        help="shard owner function: key prefix or a mixed "
+                             "32-bit hash (balanced under GC-content skew; "
+                             "output bytes identical)")
+        sp.add_argument("--coordinator", default=None,
+                        help="multi-host runs (not yet ported)")
+        sp.add_argument("--num-processes", type=int, default=None,
+                        help="multi-host runs (not yet ported)")
+        sp.add_argument("--process-id", type=int, default=None,
+                        help="multi-host runs (not yet ported)")
+
     sp = sub.add_parser("kmerize", help="FASTA/FASTQ -> k-mer set with counts")
     sp.add_argument("-k", type=int, required=True, dest="k")
     sp.add_argument("--batch-reads", type=int, default=4096)
     sp.add_argument("--max-len", type=int, default=256)
     sp.add_argument("--merge-capacity", type=int, default=1 << 26,
                     help="device accumulator capacity in unique k-mers")
+    sp.add_argument("--spill-dir", default=None,
+                    help="per-batch checkpoint runs (not yet ported)")
+    sp.add_argument("--resume", action="store_true",
+                    help="reuse runs in --spill-dir (not yet ported)")
+    shard_flags(sp, "shard the k-mer key space")
     out_codec(sp)
     device_flag(sp)
     sp.add_argument("output")
@@ -255,15 +300,7 @@ def build_parser() -> argparse.ArgumentParser:
                     help="write reads with >= --min-hits panel k-mers here "
                          "(FASTQ)")
     sp.add_argument("--min-hits", type=int, default=1)
-    sp.add_argument("--shards", type=int, default=1,
-                    help="hash-shard the panel across N devices (not yet "
-                         "ported: N > 1 exits 1)")
-    sp.add_argument("--coordinator", default=None,
-                    help="multi-host runs (not yet ported)")
-    sp.add_argument("--num-processes", type=int, default=None,
-                    help="multi-host runs (not yet ported)")
-    sp.add_argument("--process-id", type=int, default=None,
-                    help="multi-host runs (not yet ported)")
+    shard_flags(sp, "hash-shard the panel")
     batch_flags(sp)
     sp.set_defaults(fn=cmd_scan)
 

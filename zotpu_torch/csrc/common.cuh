@@ -1,8 +1,8 @@
 // Definitions shared by the zotpu_torch CUDA kernels (pack.cu, dedup.cu,
-// merge.cu, scan.cu, join.cu). Keys are int64 packed canonical k-mers
-// (< 2^62) with INT64_MAX as the padding sentinel, so it sorts last; counts
-// are int64 holding u32 values that saturate at COUNT_MAX
-// (zotpu/semantics.py).
+// merge.cu, scan.cu, join.cu, merge_runs.cu). Keys are int64 packed
+// canonical k-mers (< 2^62) with INT64_MAX as the padding sentinel, so it
+// sorts last; counts are int64 holding u32 values that saturate at
+// COUNT_MAX (zotpu/semantics.py).
 #pragma once
 
 #include <cuda_runtime.h>
@@ -28,6 +28,15 @@ inline long long n_tiles(long long n) { return (n + TILE - 1) / TILE; }
 cudaError_t launch_scan_blocks(const long long* counts, long long* offsets,
                                long long n, long long* total,
                                cudaStream_t stream);
+
+// K2's pipeline (dedup.cu) on n >= 1 sorted keys with an INT64_MAX tail:
+// dense unique keys, segment counts and *n_unique; K6 (merge_runs.cu)
+// runs it over its merged output. scratch holds dedup_scratch_elems(n).
+long long dedup_scratch_elems(long long n);
+cudaError_t launch_dedup_compact(const long long* keys, long long n,
+                                 long long* ukeys, long long* counts,
+                                 long long* n_unique, long long* scratch,
+                                 cudaStream_t stream);
 
 }  // namespace zt
 

@@ -103,22 +103,16 @@ __global__ void dedup_finish_kernel(long long cap, long long* ukeys,
 
 }  // namespace
 
-// int64 scratch elements zt_dedup_compact needs for n keys.
-extern "C" long long zt_dedup_scratch_elems(long long n) {
-  return 2 * zt::n_tiles(n) + 1 + n;
-}
+namespace zt {
 
-// keys: n >= 1 sorted int64 -> ukeys/counts (n each), *n_unique.
-extern "C" int zt_dedup_compact(const void* keys_v, long long n, void* ukeys_v,
-                                void* counts_v, void* n_unique_v,
-                                void* scratch_v, void* stream_v) {
-  const long long* keys = static_cast<const long long*>(keys_v);
-  long long* ukeys = static_cast<long long*>(ukeys_v);
-  long long* counts = static_cast<long long*>(counts_v);
-  long long* n_unique = static_cast<long long*>(n_unique_v);
-  cudaStream_t stream = static_cast<cudaStream_t>(stream_v);
-  const long long nb = zt::n_tiles(n);
-  long long* block_counts = static_cast<long long*>(scratch_v);
+long long dedup_scratch_elems(long long n) { return 2 * n_tiles(n) + 1 + n; }
+
+cudaError_t launch_dedup_compact(const long long* keys, long long n,
+                                 long long* ukeys, long long* counts,
+                                 long long* n_unique, long long* scratch,
+                                 cudaStream_t stream) {
+  const long long nb = n_tiles(n);
+  long long* block_counts = scratch;
   long long* offsets = block_counts + nb;
   long long* n_valid = offsets + nb;
   long long* starts = n_valid + 1;
@@ -126,9 +120,9 @@ extern "C" int zt_dedup_compact(const void* keys_v, long long n, void* ukeys_v,
   dedup_count_kernel<<<static_cast<unsigned>(nb), THREADS, 0, stream>>>(
       keys, n, block_counts, n_valid);
   ZT_CHECK_LAUNCH();
-  cudaError_t err =
-      zt::launch_scan_blocks(block_counts, offsets, nb, n_unique, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
+  cudaError_t err = launch_scan_blocks(block_counts, offsets, nb, n_unique,
+                                       stream);
+  if (err != cudaSuccess) return err;
   dedup_scatter_kernel<<<static_cast<unsigned>(nb), THREADS, 0, stream>>>(
       keys, n, offsets, ukeys, starts);
   ZT_CHECK_LAUNCH();
@@ -137,5 +131,23 @@ extern "C" int zt_dedup_compact(const void* keys_v, long long n, void* ukeys_v,
                             fin_blocks < 65536 ? fin_blocks : 65536),
                         THREADS, 0, stream>>>(n, ukeys, starts, counts,
                                               n_unique, n_valid);
-  return static_cast<int>(cudaGetLastError());
+  return cudaGetLastError();
+}
+
+}  // namespace zt
+
+// int64 scratch elements zt_dedup_compact needs for n keys.
+extern "C" long long zt_dedup_scratch_elems(long long n) {
+  return zt::dedup_scratch_elems(n);
+}
+
+// keys: n >= 1 sorted int64 -> ukeys/counts (n each), *n_unique.
+extern "C" int zt_dedup_compact(const void* keys_v, long long n, void* ukeys_v,
+                                void* counts_v, void* n_unique_v,
+                                void* scratch_v, void* stream_v) {
+  return static_cast<int>(zt::launch_dedup_compact(
+      static_cast<const long long*>(keys_v), n,
+      static_cast<long long*>(ukeys_v), static_cast<long long*>(counts_v),
+      static_cast<long long*>(n_unique_v), static_cast<long long*>(scratch_v),
+      static_cast<cudaStream_t>(stream_v)));
 }

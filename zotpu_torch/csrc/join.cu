@@ -24,6 +24,17 @@
 // needed). One warp reduction sums the row and lane 0 writes it. No probe
 // sort, no key transform, no capacity that can truncate; every window
 // counts, repeats and both strands of one canonical key included.
+//
+// The tagged entry (zt_join_row_hits_tagged) serves the sharded pulldown
+// (zotpu/dist/shuffle.py make_pulldown_step, which ran the same Pallas
+// join through _join_pallas_star (:783) on a routed probe stream and
+// summed rows with _rowsum_by_key, zotpu/kernels/join.py:108). A routed
+// stream holds any population of rows, so each probe carries its row id:
+// one thread a probe, the same lower-bound search, then an atomic add
+// into hits[tag]. Sentinel probes (bucket padding) and tags outside
+// [0, n_rows) never count. Routed probes arrive key-sorted, so
+// neighbouring threads search neighbouring keys and their tags scatter,
+// which keeps the atomics apart.
 
 #include "common.cuh"
 
@@ -67,6 +78,23 @@ __global__ void __launch_bounds__(JOIN_THREADS)
   if (lane == 0) row_hits[row] = hits;
 }
 
+__global__ void __launch_bounds__(JOIN_THREADS)
+    join_tagged_kernel(const long long* __restrict__ panel, long long n_panel,
+                       const long long* __restrict__ probes,
+                       const long long* __restrict__ tags, long long n,
+                       long long n_rows, int* __restrict__ row_hits) {
+  const long long step = static_cast<long long>(gridDim.x) * JOIN_THREADS;
+  for (long long i = static_cast<long long>(blockIdx.x) * JOIN_THREADS +
+                     threadIdx.x;
+       i < n; i += step) {
+    const long long key = probes[i];
+    if (key == zt::SENT) continue;
+    const long long tag = tags[i];
+    if (tag >= 0 && tag < n_rows && in_panel(panel, n_panel, key))
+      atomicAdd(row_hits + tag, 1);
+  }
+}
+
 }  // namespace
 
 extern "C" int zt_join_row_hits(const void* panel, long long n_panel,
@@ -77,6 +105,23 @@ extern "C" int zt_join_row_hits(const void* panel, long long n_panel,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const long long*>(panel), n_panel,
       static_cast<const long long*>(probes), n_rows, m_per_row,
+      static_cast<int*>(row_hits));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// row_hits (n_rows int32) must hold zeros; it gains one per probe that is
+// not INT64_MAX, has a tag in [0, n_rows) and is in panel[0, n_panel).
+extern "C" int zt_join_row_hits_tagged(const void* panel, long long n_panel,
+                                       const void* probes, const void* tags,
+                                       long long n, long long n_rows,
+                                       void* row_hits, void* stream) {
+  long long blocks = (n + JOIN_THREADS - 1) / JOIN_THREADS;
+  if (blocks > 1 << 20) blocks = 1 << 20;
+  join_tagged_kernel<<<static_cast<unsigned>(blocks), JOIN_THREADS, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const long long*>(panel), n_panel,
+      static_cast<const long long*>(probes),
+      static_cast<const long long*>(tags), n, n_rows,
       static_cast<int*>(row_hits));
   return static_cast<int>(cudaGetLastError());
 }

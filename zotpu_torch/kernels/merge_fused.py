@@ -104,14 +104,11 @@ def set_op_fused(ka, ca, kb, cb, op: str = "merge", n_a=None, n_b=None):
     lib = _build.lib()
     scratch = torch.empty(lib.zt_set_op_scratch_elems(MA, MB),
                           dtype=torch.int64, device=device)
-    _build.check(lib.zt_set_op(
-        OPS[op], ka.data_ptr(), ca.data_ptr(), MA,
-        None if n_a is None else n_a.data_ptr(),
-        kb.data_ptr(), cb.data_ptr(), MB,
-        None if n_b is None else n_b.data_ptr(),
-        out_k.data_ptr(), out_c.data_ptr(), n_out.data_ptr(),
-        scratch.data_ptr(), torch.cuda.current_stream(device).cuda_stream),
-        "zt_set_op")
+    _build.launch(device, "zt_set_op", OPS[op], ka.data_ptr(), ca.data_ptr(),
+                  MA, None if n_a is None else n_a.data_ptr(),
+                  kb.data_ptr(), cb.data_ptr(), MB,
+                  None if n_b is None else n_b.data_ptr(), out_k.data_ptr(),
+                  out_c.data_ptr(), n_out.data_ptr(), scratch.data_ptr())
     set_op_fused.launches += 1
     return out_k, out_c, n_out
 

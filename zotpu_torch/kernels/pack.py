@@ -54,9 +54,7 @@ def _launch(wrapper, c_name, ptrs, R, L, k, device):
                          f"{lib.zt_pack_max_len()}")
     out = torch.empty(R * (L - k + 1), dtype=torch.int64, device=device)
     if R:
-        stream = torch.cuda.current_stream(device).cuda_stream
-        _build.check(getattr(lib, c_name)(*ptrs, R, L, k, out.data_ptr(),
-                                          stream), c_name)
+        _build.launch(device, c_name, *ptrs, R, L, k, out.data_ptr())
         wrapper.launches += 1
     return out
 

@@ -57,11 +57,9 @@ def dedup_compact(keys):
     lib = _build.lib()
     scratch = torch.empty(lib.zt_dedup_scratch_elems(n), dtype=torch.int64,
                           device=keys.device)
-    _build.check(lib.zt_dedup_compact(
-        keys.data_ptr(), n, ukeys.data_ptr(), counts.data_ptr(),
-        n_unique.data_ptr(), scratch.data_ptr(),
-        torch.cuda.current_stream(keys.device).cuda_stream),
-        "zt_dedup_compact")
+    _build.launch(keys.device, "zt_dedup_compact", keys.data_ptr(), n,
+                  ukeys.data_ptr(), counts.data_ptr(), n_unique.data_ptr(),
+                  scratch.data_ptr())
     dedup_compact.launches += 1
     return ukeys, counts, n_unique
 

@@ -1,13 +1,15 @@
-"""Device-resident LSM merge accumulator for streaming kmerize.
+"""Device-resident LSM merge accumulators for streaming kmerize.
 
-Port of zotpu/workloads/accumulator.py ``DeviceAccumulator``. Level i holds
-at most one run of capacity ``min(base_cap << i, max_cap)``. A new run enters
-level 0; while a level is occupied the two runs merge through the fused
-set-op kernel (op="merge", counts saturate) and carry to the next level, so
-each key is merged O(log B) times over B batches. Every run is dense, so
-every merge takes the fused kernel with the valid counts passed as device
-tensors; nothing synchronizes with the host until ``result()``. Capacity
-overflow accumulates in a device tensor and raises ``CapacityError`` there.
+Port of zotpu/workloads/accumulator.py ``DeviceAccumulator`` and, for the
+sharded path, ``ShardedAccumulator`` (one DeviceAccumulator a slot). Level
+i holds at most one run of capacity ``min(base_cap << i, max_cap)``. A new
+run enters level 0; while a level is occupied the two runs merge through
+the fused set-op kernel (op="merge", counts saturate) and carry to the next
+level, so each key is merged O(log B) times over B batches. Every run is
+dense, so every merge takes the fused kernel with the valid counts passed
+as device tensors; nothing synchronizes with the host until ``result()``.
+Capacity overflow accumulates in a device tensor and raises
+``CapacityError`` there.
 
 ``CapacityError`` is raised iff the final unique count exceeds
 ``max(max_cap, base_cap)``: an intermediate merge holds a subset of the final
@@ -18,6 +20,7 @@ not rounded to a TPU tile.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from zotpu_torch import keys as K
@@ -77,10 +80,9 @@ class DeviceAccumulator:
             keys, counts = keys[:out_cap], counts[:out_cap]
         return keys, counts, n
 
-    def result(self):
-        """Merge the remaining levels, check the deferred overflow, and copy
-        the dense prefix to the host: the single host sync of the run.
-        Returns (u64 keys, u32 counts) numpy arrays."""
+    def final(self):
+        """Merge the remaining levels into one entry (keys, counts, n), or
+        None when nothing was added. No host synchronization."""
         entry = None
         cap_final = self._cap(len(self.levels))
         for lvl in self.levels:
@@ -88,6 +90,13 @@ class DeviceAccumulator:
                 continue
             entry = lvl if entry is None else self._merge(entry, lvl,
                                                           cap_final)
+        return entry
+
+    def result(self):
+        """Merge the remaining levels, check the deferred overflow, and copy
+        the dense prefix to the host: the single host sync of the run.
+        Returns (u64 keys, u32 counts) numpy arrays."""
+        entry = self.final()
         if entry is None:
             return K.to_numpy_set(torch.empty(0, dtype=torch.int64),
                                   torch.empty(0, dtype=torch.int64), 0)
@@ -96,10 +105,75 @@ class DeviceAccumulator:
             raise CapacityError(
                 f"accumulator overflowed its unique-key capacity by "
                 f"{overflow}; rerun with a larger --merge-capacity")
-        keys, counts = entry[0][:n], entry[1][:n]
-        if keys.is_cuda:  # each prefix straight into pinned host memory
-            keys = torch.empty(n, dtype=torch.int64,
-                               pin_memory=True).copy_(keys)
-            counts = torch.empty(n, dtype=torch.int64,
-                                 pin_memory=True).copy_(counts)
+        keys, counts = _to_host([entry[0][:n], entry[1][:n]])
         return K.to_numpy_set(keys, counts, n)
+
+
+def _to_host(parts):
+    """Copy device tensors to the host, CUDA ones into one pinned buffer
+    (a slice each) behind one synchronize of each device; returns host
+    tensors."""
+    devices = {t.device for t in parts if t.is_cuda}
+    if not devices:
+        return [t.cpu() for t in parts]
+    buf = torch.empty(sum(t.shape[0] for t in parts), dtype=torch.int64,
+                      pin_memory=True)
+    out, off = [], 0
+    for t in parts:
+        out.append(buf[off:off + t.shape[0]])
+        out[-1].copy_(t, non_blocking=True)
+        off += t.shape[0]
+    for dev in devices:
+        torch.cuda.synchronize(dev)
+    return out
+
+
+class ShardedAccumulator:
+    """Per-slot LSM accumulator of the sharded kmerize path.
+
+    Port of zotpu/workloads/accumulator.py ``ShardedAccumulator`` for the
+    single-controller mesh (dist/mesh.py): each slot runs its own
+    DeviceAccumulator on its device, with every level merge on K3 with
+    device valid counts. Slot key ranges are disjoint, so slots never merge
+    with each other. Nothing synchronizes with the host until ``result()``,
+    which checks the deferred overflow of every slot with one read and
+    copies the dense prefixes into one pinned buffer.
+
+    ``max_cap`` is the global unique-key capacity; each slot gets
+    ``max(max_cap // D, batch_capacity)``. ``CapacityError`` follows the
+    port's rule (DeviceAccumulator): it is raised iff a slot's final unique
+    count exceeds that, with ``batch_capacity`` the step's run capacity
+    itself, not rounded up to a TPU tile as in the JAX package."""
+
+    def __init__(self, devices, batch_capacity: int, max_cap: int = 1 << 26):
+        per_slot = max(max_cap // len(devices), batch_capacity)
+        self.slots = [DeviceAccumulator(batch_capacity, max_cap=per_slot,
+                                        device=dev) for dev in devices]
+
+    def add(self, runs) -> None:
+        """Insert one dense (keys, counts, n) run per slot."""
+        for acc, (keys, counts, n) in zip(self.slots, runs):
+            acc.add(keys, counts, n)
+
+    def result(self):
+        """Per-slot (int64 keys, int64 counts, n) numpy arrays, the layout
+        of dist.shuffle.gather_global."""
+        D = len(self.slots)
+        entries = [acc.final() for acc in self.slots]
+        if entries[0] is None:      # add() fills every slot, or none
+            z = np.zeros(0, np.int64)
+            return [z] * D, [z] * D, [0] * D
+        dev0 = entries[0][2].device
+        stats = torch.stack([torch.stack([acc.overflow, e[2]]).to(dev0)
+                             for acc, e in zip(self.slots, entries)]).tolist()
+        for d, (overflow, _) in enumerate(stats):
+            if overflow > 0:
+                raise CapacityError(
+                    f"sharded accumulator overflowed its per-shard "
+                    f"unique-key capacity by {overflow} (shard {d}); rerun "
+                    f"with a larger --merge-capacity")
+        ns = [n for _, n in stats]
+        host = _to_host([e[0][:n] for e, n in zip(entries, ns)]
+                        + [e[1][:n] for e, n in zip(entries, ns)])
+        host = [t.numpy() for t in host]
+        return host[:D], host[D:], ns

@@ -11,8 +11,13 @@ One prefetched stream runs over every sample, so parsing the next sample
 overlaps the device work of this one. On CUDA each batch goes up from
 pinned host memory on a side stream (as in workloads/kmerize.py), and its
 row hits come down into pinned memory behind an event; the host aggregates
-batch i-1 while the card works on batch i. The hash-sharded and multi-host
-pulldown (``pulldown_paths_sharded``) is not yet ported.
+batch i-1 while the card works on batch i.
+
+``pulldown_paths_sharded`` ports the single-controller hash-sharded scan:
+the panel is partitioned over the mesh's slots by the same owner function
+as the routing, read k-mers route to their owner slot carrying their
+global read-row id, and per-row hits sum over slots (dist/shuffle.py
+``make_pulldown_step``). The multi-controller form is not yet ported.
 """
 
 from __future__ import annotations
@@ -22,10 +27,13 @@ import torch
 
 from zotpu.io import fastq
 from zotpu.io.prefetch import prefetch
+from zotpu_torch.dist import shuffle
 from zotpu_torch.kernels.join import row_hits_sorted_join
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.keys import SENTINEL
-from zotpu_torch.workloads.kmerize import host_tensors
+from zotpu_torch.workloads.kmerize import (SlotUploads, await_upload,
+                                           host_tensors, sharded_mesh,
+                                           upload)
 
 
 def scan_batch(codes, lengths, panel, k: int):
@@ -98,6 +106,18 @@ def _iter_scan_batches(paths, batch_reads, max_len, k, wire_pack, pin):
     return prefetch(gen(), depth=2)
 
 
+def _download(t):
+    """Start copying a device tensor into pinned host memory; returns the
+    host tensor and an event to wait on (None on the CPU)."""
+    if not t.is_cuda:
+        return t, None
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(t.device))
+    return host, done
+
+
 def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
                    batch_reads: int = 4096, max_len: int = 256,
                    device="cuda"):
@@ -118,28 +138,69 @@ def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
 
     for idx, batch, host in _iter_scan_batches(
             sample_paths, batch_reads, max_len, k, wire_pack, on_cuda):
-        done = None
-        if on_cuda:
-            with torch.cuda.stream(copy_stream):
-                dev = tuple(t.to(device, non_blocking=True) for t in host)
-            compute = torch.cuda.current_stream(device)
-            compute.wait_stream(copy_stream)
-            for t in dev:
-                t.record_stream(compute)
-        else:
-            dev = host
+        dev = upload(host, device, copy_stream)
+        await_upload(dev, device, copy_stream)
         if wire_pack:
             hits = scan_batch_wire(*dev, panel, k)
         else:
             hits = scan_batch(*dev, panel, k)
-        if on_cuda:
-            hits = torch.empty(hits.shape, dtype=hits.dtype,
-                               pin_memory=True).copy_(hits, non_blocking=True)
-            done = torch.cuda.Event()
-            done.record(compute)
+        hits, done = _download(hits)
         if pending is not None:
             finish(*pending)
         pending = (idx, batch, hits, done)
+    if pending is not None:
+        finish(*pending)
+    return [agg.result() for agg in aggs]
+
+
+def pulldown_paths_sharded(panel_keys: np.ndarray, sample_paths: list[str],
+                           k: int, n_shards: int, batch_reads: int = 4096,
+                           max_len: int = 256, capacity_factor: float = 4.0,
+                           shard_hash: str = "prefix", device="cuda",
+                           devices=None):
+    """Hash-sharded pulldown over a mesh of n_shards slots (BASELINE config
+    5): per-sample (total_hits, reads_with_hits, per_read_hits list), the
+    same surface as pulldown_paths. The slots are ``devices`` when given
+    (several may name one card), else n_shards slots of ``device``. A
+    routing overflow raises ValueError for the batch it happens in."""
+    mesh = sharded_mesh(n_shards, device, devices)
+    reads_per_chip = max(batch_reads // n_shards, 1)
+    wire_pack = max_len % 32 == 0
+    rows, _ = shuffle.partition_panel(panel_keys, k, n_shards,
+                                      shard_hash=shard_hash)
+    panels = [torch.from_numpy(rows[d]).to(dev)
+              for d, dev in enumerate(mesh.devices)]
+    step = shuffle.make_pulldown_step(mesh, k, reads_per_chip, max_len,
+                                      capacity_factor=capacity_factor,
+                                      wire=wire_pack, shard_hash=shard_hash)
+    uploads = SlotUploads(mesh, reads_per_chip)
+    pin = any(d.type == "cuda" for d in mesh.devices)
+    aggs = [RecordAggregator() for _ in sample_paths]
+    pending = None
+
+    def finish(idx, batch, hits, overflow, done):
+        if done is not None:
+            done.synchronize()
+        if int(overflow.sum()) > 0:
+            raise ValueError("all-to-all bucket overflow in scan: raise "
+                             "capacity_factor")
+        n = batch.n_reads
+        aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
+
+    for idx, batch, host in _iter_scan_batches(
+            sample_paths, reads_per_chip * n_shards, max_len, k, wire_pack,
+            pin):
+        slots = uploads.start(host)
+        uploads.wait(slots)
+        hits, overflow = step(slots, panels)
+        dev0 = mesh.devices[0]
+        both = torch.cat([hits[0].to(torch.int64),
+                          torch.stack([o.to(dev0) for o in overflow])])
+        both, done = _download(both)
+        if pending is not None:
+            finish(*pending)
+        R = hits[0].shape[0]
+        pending = (idx, batch, both[:R], both[R:], done)
     if pending is not None:
         finish(*pending)
     return [agg.result() for agg in aggs]
