@@ -5,15 +5,24 @@
 
 Phases (any failure exits non-zero; no exception is caught):
 
-1. the card's name and power limit (nvidia-smi), then the kernel build;
-2. each kernel against its plain PyTorch version on the same CUDA tensors
-   at the main path's shapes (a batch of 65,536 reads x 160, k=25; the
-   join against the scan panel of phase 5): exact equality, and both
-   times by CUDA events (median of several runs); then (2b) the same kind
-   of batch split over 4 slots on this card and routed by the sharded
-   step's own ``_route``: the receive-tree kernels K5, K6 and K7 and K4's
-   tagged entry on slot 0's received runs (about 8.9M slots), and the
-   cost of the host read of the second-round flag;
+1. the card's name and power limit (nvidia-smi), then the kernel build
+   and the native FASTQ parser's (the numpy fallback in use is a failure);
+2. the card's device-to-device copy rate; the set-op and pack kernels on
+   the edge shapes of ``zotpu_torch/kernels/edge_cases.py``; then each
+   kernel against its plain PyTorch version on the same CUDA tensors at
+   the main path's shapes (a batch of 65,536 reads x 160, k=25; the join
+   against the scan panel of phase 5; the set-op kernel also at the
+   accumulator's level-3 shape): exact equality over what the contract
+   defines, both times by CUDA events (median of several runs), the bound
+   from the contract bytes (each input read once, each output written
+   once) at the published 3.35 TB/s and at the measured copy rate, and
+   the time of the one PyTorch call that computes the same function where
+   there is one (``torch.unique_consecutive`` for K2, ``torch.searchsorted``
+   for K4); then (2b) the same kind of batch split over 4 slots on this
+   card and routed by the sharded step's own ``_route``: the receive-tree
+   kernels K5, K6 and K7 and K4's tagged entry on slot 0's received runs
+   (about 8.9M slots), and the cost of the host read of the second-round
+   flag;
 3. the kmerize path at real size: ``python -m zotpu_torch kmerize -k 25``
    on a synthetic E. coli K-12-sized genome (4,641,652 bp) read at 30x
    (150 bp, 0.5% substitutions, a sprinkling of N), checked against an
@@ -22,9 +31,10 @@ Phases (any failure exits non-zero; no exception is caught):
    pack path (--max-len 150), which must give the same container. The
    launch counts are set to 0 just before each of these two runs and read
    just after it: the wire run's counts for K1a, K2 and K3, the u8 run's
-   for K1b; each must be > 0;
+   for K1b; each must be > 0; then the host pipeline alone and a warm
+   rerun under torch.profiler for the device's busy share;
 4. golden: a ~1 Mbase subset through the CLI's u8 path (--max-len 150)
-   against zotpu.reference_impl.golden.kmerize;
+   against zotpu_torch.reference_impl.golden.kmerize;
 5. the scan path at real size (BASELINE config 5): ``python -m zotpu_torch
    scan`` of the same reads, split into 16 samples, against a panel of the
    canonical 25-mers of the genome's first 1,000,000 bp plus 2^20 random
@@ -46,7 +56,9 @@ Phases (any failure exits non-zero; no exception is caught):
    ``pulldown_paths``; K7 and K4's tagged entry must run.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-one JSON object with every kernel's launches, error and times.
+one JSON object with every kernel's launches, error, times and bound.
+The script imports nothing of the JAX package ``zotpu``: it runs from a
+tree that holds ``chip_smoke.py`` and ``zotpu_torch/`` alone.
 """
 
 from __future__ import annotations
@@ -99,6 +111,9 @@ KERNEL_INFO = {
                            "zotpu/kernels/sort_pallas.py:330"),
 }
 SHARDS = 4                     # D slots on one card
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published (the bound's rate)
+COPY_RATE = {}                 # "bytes_per_s": measured in phase 2
+SPIN_CYCLES = 3_500_000        # about 2 ms of the card's clock
 SHARD_CF = 4.0                 # kmerize_paths_sharded's capacity factor
 
 
@@ -118,8 +133,14 @@ def card_line() -> str:
         capture_output=True, text=True, check=True).stdout.strip()
 
 
-def cuda_ms(torch, fn, reps=7, warm=2) -> float:
-    """Median milliseconds of fn() by CUDA events, after warm-up."""
+def cuda_ms(torch, fn, reps=7, warm=2, queued=True) -> float:
+    """Median milliseconds of fn() by CUDA events, after warm-up. With
+    ``queued`` the stream is first kept busy for about 2 ms by a spin
+    kernel, so that fn()'s launches are all enqueued before the card
+    reaches the first event: the time is then the device's alone. Without
+    it the time is the larger of the device's and the host's (allocation,
+    checks and launch calls of the wrapper), which is what a short kernel
+    called once from an idle stream costs."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -127,6 +148,8 @@ def cuda_ms(torch, fn, reps=7, warm=2) -> float:
     for _ in range(reps):
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(SPIN_CYCLES)
         start.record()
         fn()
         end.record()
@@ -135,23 +158,68 @@ def cuda_ms(torch, fn, reps=7, warm=2) -> float:
     return statistics.median(times)
 
 
-def measure(torch, name, kernel, plain):
-    """A kernel against its plain version on the same inputs: exact
-    equality of every output (a None output, such as an absent payload,
-    must be None on both sides), then both times by CUDA events."""
-    got, want = kernel(), plain()
+def dense_prefix(out):
+    """(keys, counts, n) -> the part a dense run defines: [:n] and n. K2,
+    K6 and K3 with valid counts leave the slots past n unwritten."""
+    n = int(out[2])
+    return out[0][:n], out[1][:n], out[2]
+
+
+def compare(torch, name, got, want, defined=None) -> float:
+    """Exact equality of every output of a kernel and its plain version (a
+    None output, such as an absent payload, must be None on both sides);
+    ``defined`` cuts both to the part the contract defines."""
     torch.cuda.synchronize()
+    if defined is not None:
+        got, want = defined(got), defined(want)
     got = got if isinstance(got, tuple) else (got,)
     want = want if isinstance(want, tuple) else (want,)
     check([g is None for g in got] == [w is None for w in want],
           f"{name}: outputs present on one side only")
     err = max_abs_err(torch, [g for g in got if g is not None],
                       [w for w in want if w is not None])
-    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
-    say(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms (CUDA events, median)")
     check(err == 0, f"{name} differs from its plain version")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return err
+
+
+def measure(torch, name, kernel, plain, nbytes, defined=None, library=None):
+    """A kernel against its plain version on the same inputs: exact
+    equality (compare), then both times by CUDA events (the device's
+    alone, see cuda_ms; the kernel's also from an idle stream, as earlier
+    runs of this script measured it), its bound from
+    ``nbytes`` (what the function must move: each input read once, each
+    output written once) at the published memory rate and at this card's
+    measured copy rate, and the time of ``library``, one PyTorch call that
+    computes the same function, where there is one."""
+    err = compare(torch, name, kernel(), plain(), defined)
+    ms, plain_ms = cuda_ms(torch, kernel), cuda_ms(torch, plain)
+    eager_ms = cuda_ms(torch, kernel, queued=False)
+    library_ms = None if library is None else cuda_ms(torch, library)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    copy_bound_ms = nbytes / COPY_RATE["bytes_per_s"] * 1e3
+    say(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms ({eager_ms:.4f} "
+        f"ms called from an idle stream), plain {plain_ms:.4f} ms, library "
+        f"call "
+        f"{'none' if library_ms is None else f'{library_ms:.4f} ms'} "
+        f"(CUDA events, median); {nbytes} contract bytes, bound "
+        f"{bound_ms:.4f} ms at 3.35 TB/s ({bound_ms / ms:.3f} of the "
+        f"kernel's time), {copy_bound_ms:.4f} ms at the measured copy rate "
+        f"({copy_bound_ms / ms:.3f})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes",
+            "library_ms": library_ms}
+
+
+def measure_copy_rate(torch, dev):
+    """The card's device-to-device copy rate: bytes moved (read + written)
+    per second by a 256 MiB tensor copy, the yardstick beside the published
+    3.35 TB/s."""
+    src = torch.empty(1 << 28, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = cuda_ms(torch, lambda: dst.copy_(src))
+    COPY_RATE["bytes_per_s"] = 2 * src.numel() / (ms * 1e-3)
+    say(f"  device-to-device copy of {src.numel()} B: {ms:.4f} ms, "
+        f"{COPY_RATE['bytes_per_s'] / 1e12:.4f} TB/s moved (read + write)")
 
 
 def max_abs_err(torch, got, want) -> float:
@@ -214,7 +282,7 @@ def run_cli(argv):
 def make_panel(genome, seed):
     """The scan panel: canonical K-mers of genome[:PANEL_BP] plus
     PANEL_RANDOM random keys below 4^K, sorted unique u64."""
-    from zotpu.reference_impl import golden as G
+    from zotpu_torch.reference_impl import golden as G
     gkeys, _ = G.kmerize(K, [genome[:PANEL_BP]])
     rng = np.random.default_rng([seed, 5])
     return np.unique(np.concatenate([
@@ -266,11 +334,13 @@ def profiled(torch, fn):
 
 def phase_kernels(torch, dev, rng, genome, panel):
     """Phase 2: kernel vs plain at the main path's shapes."""
-    from zotpu.io import wire
+    from zotpu_torch.io import wire
     from zotpu_torch.kernels import join as J
     from zotpu_torch.kernels import merge_fused as M
     from zotpu_torch.kernels import pack as P
     from zotpu_torch.kernels import sortdedup as D
+    from zotpu_torch.keys import SENTINEL
+    from zotpu_torch.workloads.accumulator import DeviceAccumulator
     from zotpu_torch.workloads.pulldown import panel_to_device
 
     rows = {}
@@ -282,33 +352,48 @@ def phase_kernels(torch, dev, rng, genome, panel):
     m = torch.from_numpy(mask.view(np.int32)).to(dev)
     say(f"phase 2: batch {BATCH_READS} x {MAX_LEN}, k={K}, "
         f"{BATCH_READS * (MAX_LEN - K + 1)} windows")
+    measure_copy_rate(torch, dev)
+    phase_edge_cases(torch, dev)
 
+    out_bytes = BATCH_READS * (MAX_LEN - K + 1) * 8
     rows["pack_canonical_wire"] = measure(
         torch, "pack_canonical_wire (K1a)",
         lambda: P.pack_canonical_wire(p, m, n, K),
-        lambda: P.pack_canonical_wire_plain(p, m, n, K))
+        lambda: P.pack_canonical_wire_plain(p, m, n, K),
+        packed.nbytes + mask.nbytes + lengths.nbytes + out_bytes)
     rows["pack_canonical"] = measure(
         torch, "pack_canonical (K1b)",
         lambda: P.pack_canonical(c, n, K),
-        lambda: P.pack_canonical_plain(c, n, K))
+        lambda: P.pack_canonical_plain(c, n, K),
+        codes.nbytes + lengths.nbytes + out_bytes)
 
     keys = P.pack_canonical_wire(p, m, n, K)
     sorted_keys = torch.sort(keys).values
     sort_ms = cuda_ms(torch, lambda: torch.sort(keys))
     say(f"  torch.sort of {keys.shape[0]} int64 keys: {sort_ms:.4f} ms")
+    n_unique = int(D.dedup_compact(sorted_keys)[2])
+    # the library call also drops nothing: the sentinel run is one more
+    # unique key, and it syncs with the host for its output size
     rows["dedup_compact"] = measure(
         torch, "dedup_compact (K2)",
         lambda: D.dedup_compact(sorted_keys),
-        lambda: D.dedup_compact_plain(sorted_keys))
+        lambda: D.dedup_compact_plain(sorted_keys),
+        sorted_keys.shape[0] * 8 + n_unique * 16 + 8, defined=dense_prefix,
+        library=lambda: torch.unique_consecutive(sorted_keys,
+                                                 return_counts=True))
 
     panel_t = panel_to_device(panel, device=dev)
     say(f"  scan panel: {len(panel)} keys ({panel.nbytes} B), padded to "
         f"{panel_t.shape[0]}")
     m_row = MAX_LEN - K + 1
+    # the library call is the core of the join only: each window's
+    # position in the panel, without the equality test and the row sums
     rows["join_row_hits"] = measure(
         torch, "join_row_hits (K4)",
         lambda: J.row_hits_sorted_join(panel_t, keys, BATCH_READS, m_row),
-        lambda: J.row_hits_plain(panel_t, keys, BATCH_READS, m_row))
+        lambda: J.row_hits_plain(panel_t, keys, BATCH_READS, m_row),
+        keys.shape[0] * 8 + panel_t.shape[0] * 8 + BATCH_READS * 8,
+        library=lambda: torch.searchsorted(panel_t, keys))
     hits = J.row_hits_sorted_join(panel_t, keys, BATCH_READS, m_row)
     say(f"  K4 batch: {int(hits.sum())} hits, {int((hits > 0).sum())} of "
         f"{BATCH_READS} rows hit")
@@ -322,12 +407,25 @@ def phase_kernels(torch, dev, rng, genome, panel):
     (ka, ca, na), (kb, cb, nb) = runs
     say(f"  set_op_fused inputs: n_a={int(na)} n_b={int(nb)} of "
         f"{ka.shape[0]} each")
+    n_in = int(na) + int(nb)
     for op in ("merge", "union", "intersect", "diff"):
+        n_op = int(M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb)[2])
         r = measure(torch, f"set_op_fused op={op} (K3)",
                     lambda: M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
-                    lambda: M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb))
+                    lambda: M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                    (n_in + n_op) * 16 + 24, defined=dense_prefix)
         if op == "merge":
             rows["set_op_fused"] = r
+    # without the valid counts the whole sentinel-tailed arrays merge and
+    # the output's tail is written: every slot must equal the plain version
+    # (K2 leaves its runs' tails unwritten, so the sentinel tails are made)
+    sent_a, sent_b = (torch.where(torch.arange(k.shape[0], device=dev) < n_,
+                                  k, SENTINEL)
+                      for k, n_ in ((ka, na), (kb, nb)))
+    compare(torch, "set_op_fused without valid counts",
+            M.set_op_fused(sent_a, ca, sent_b, cb, "merge"),
+            M.set_op_plain(sent_a, ca, sent_b, cb, "merge"))
+    del sent_a, sent_b
     ko, co, no = M.set_op_fused(ka, ca, kb, cb, "merge", n_a=na, n_b=nb)
     nout = int(no)
     pin_k = torch.empty(nout, dtype=torch.int64, pin_memory=True)
@@ -339,7 +437,66 @@ def phase_kernels(torch, dev, rng, genome, panel):
     h2d_ms = cuda_ms(torch, lambda: p.copy_(pinned, non_blocking=True))
     say(f"  H2D of one batch's wire words ({packed.nbytes} B, pinned): "
         f"{h2d_ms:.4f} ms")
+    del ko, co, pin_k, ka, ca, kb, cb
+
+    # the accumulator's upper levels: two level-2 runs (4 batches each, 4x
+    # the batch capacity) merging into level 3, as the 30x run does once
+    sides = []
+    for _ in range(2):
+        acc = DeviceAccumulator(keys.shape[0], device=dev)
+        for _ in range(4):
+            bc, _ = batch_codes(rng, genome, BATCH_READS)
+            acc.add(*D.kmer_sort_dedup(P.pack_canonical(
+                torch.from_numpy(bc).to(dev), n, K)))
+        check(acc.levels[:2] == [None, None] and len(acc.levels) == 3,
+              "four batches end in one level-2 run")
+        sides.append(acc.levels[2])
+    (ka, ca, na), (kb, cb, nb) = sides
+    n_l3 = int(M.set_op_fused(ka, ca, kb, cb, "merge", n_a=na, n_b=nb)[2])
+    say(f"  level-3 merge inputs: n_a={int(na)} n_b={int(nb)} of "
+        f"{ka.shape[0]} each, n_out={n_l3}")
+    measure(torch, "set_op_fused op=merge at the level-3 shape (K3)",
+            lambda: M.set_op_fused(ka, ca, kb, cb, "merge", n_a=na, n_b=nb),
+            lambda: M.set_op_plain(ka, ca, kb, cb, "merge", n_a=na, n_b=nb),
+            (int(na) + int(nb) + n_l3) * 16 + 24, defined=dense_prefix)
     return rows
+
+
+def phase_edge_cases(torch, dev):
+    """The shapes the set-op and pack kernels can get wrong
+    (zotpu_torch/kernels/edge_cases.py), kernel against plain version,
+    exact: K3 on every op with and without the valid counts, K1 on both
+    input forms."""
+    from zotpu_torch.io import wire
+    from zotpu_torch.kernels import edge_cases as EC
+    from zotpu_torch.kernels import merge_fused as M
+    from zotpu_torch.kernels import pack as P
+
+    cases = EC.set_op_cases()
+    for name, a, b in cases:
+        ka, ca = (torch.from_numpy(x).to(dev) for x in a[:2])
+        kb, cb = (torch.from_numpy(x).to(dev) for x in b[:2])
+        na, nb = (torch.tensor(x[2], device=dev) for x in (a, b))
+        for op in ("merge", "intersect", "diff"):
+            compare(torch, f"K3 {name} {op} with valid counts",
+                    M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                    M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                    dense_prefix)
+            compare(torch, f"K3 {name} {op} without valid counts",
+                    M.set_op_fused(ka, ca, kb, cb, op),
+                    M.set_op_plain(ka, ca, kb, cb, op))
+    packs = EC.pack_cases()
+    for name, codes, lengths, k in packs:
+        packed, mask = wire.pack_codes(codes)
+        c = torch.from_numpy(codes).to(dev)
+        n = torch.from_numpy(lengths).to(dev)
+        want = P.pack_canonical_plain(c, n, k)
+        compare(torch, f"K1b {name}", P.pack_canonical(c, n, k), want)
+        compare(torch, f"K1a {name}", P.pack_canonical_wire(
+            torch.from_numpy(packed.view(np.int32)).to(dev),
+            torch.from_numpy(mask.view(np.int32)).to(dev), n, k), want)
+    say(f"  edge shapes: K3 {len(cases)} cases x 3 ops x (with, without "
+        f"valid counts), K1 {len(packs)} cases x (wire, u8): all exact")
 
 
 def phase_shard_kernels(torch, dev, rng, genome, panel):
@@ -347,7 +504,7 @@ def phase_shard_kernels(torch, dev, rng, genome, panel):
     versions at one full batch's shapes: the batch of phase 2 split over
     SHARDS slots on this card, sorted and routed by the sharded step's own
     _route (prefix owner, SHARD_CF), then slot 0's received runs."""
-    from zotpu.io import wire
+    from zotpu_torch.io import wire
     from zotpu_torch.dist import shuffle as SH
     from zotpu_torch.dist.mesh import make_mesh
     from zotpu_torch.kernels import join as J
@@ -383,19 +540,25 @@ def phase_shard_kernels(torch, dev, rng, genome, panel):
         f"{MAX_LEN}, k={K}: {m_local} keys a slot, cap {cap}, slot 0 "
         f"receives {rk.shape[0]} slots ({n_valid} valid) in {SHARDS} runs")
 
+    # no library call merges sorted runs: torch.sort of the concatenation
+    # is the plain version of K5, K6 and K7 (and of K3), not a merge
     rows["merge_runs"] = measure(
         torch, f"merge_runs_pass run={cap} (K5)",
         lambda: MR.merge_runs_pass(rk, None, cap),
-        lambda: MR.merge_plain(rk, None, 2 * cap, cap))
+        lambda: MR.merge_plain(rk, None, 2 * cap, cap),
+        rk.shape[0] * 16)
     half, _ = MR.merge_runs_pass(rk, None, cap)
+    n_k6 = int(MD.merge_dedup_pass(half, 2 * cap)[2])
     rows["merge_dedup"] = measure(
         torch, f"merge_dedup_pass run={2 * cap} (K6)",
         lambda: MD.merge_dedup_pass(half, 2 * cap),
-        lambda: MD.merge_dedup_plain(half, 2 * cap))
+        lambda: MD.merge_dedup_plain(half, 2 * cap),
+        half.shape[0] * 8 + n_k6 * 16 + 8, defined=dense_prefix)
     rows["merge_runs_payload"] = measure(
         torch, f"merge_runs_pass run={cap} with row ids (K7)",
         lambda: MR.merge_runs_pass(rk, rt, cap),
-        lambda: MR.merge_plain(rk, rt, 2 * cap, cap))
+        lambda: MR.merge_plain(rk, rt, 2 * cap, cap),
+        rk.shape[0] * 32)
     qk, qt = SH.merge_received_runs_tag(rk, rt, SHARDS, cap, 0)
     prow, pcap = SH.partition_panel(panel, K, SHARDS)
     p0 = torch.from_numpy(prow[0]).to(dev)
@@ -403,7 +566,9 @@ def phase_shard_kernels(torch, dev, rng, genome, panel):
         torch, f"row_hits_tagged, {qk.shape[0]} probes vs a {pcap}-key "
         f"panel row (K4 tagged)",
         lambda: J.row_hits_tagged(p0, qk, qt, BATCH_READS),
-        lambda: J.row_hits_tagged_plain(p0, qk, qt, BATCH_READS))
+        lambda: J.row_hits_tagged_plain(p0, qk, qt, BATCH_READS),
+        qk.shape[0] * 16 + p0.shape[0] * 8 + BATCH_READS * 8,
+        library=lambda: torch.searchsorted(p0, qk))
 
     # the host read of the second-round flag: route with and without it
     def route(c2):
@@ -432,8 +597,8 @@ def phase_sharded_kmerize(torch, fx, tmp):
     per owner function, against the single-device container of phase 3;
     then a forced second round on one slot with a capacity factor below
     1. Returns K5's and K6's launches in the prefix run."""
-    from zotpu import semantics as S
-    from zotpu.io import container
+    from zotpu_torch import semantics as S
+    from zotpu_torch.io import container
     from zotpu_torch import kernels
     from zotpu_torch.dist import shuffle as SH
     from zotpu_torch.workloads import kmerize as W
@@ -575,8 +740,8 @@ def phase_main_path(torch, fx, tmp):
     """Phases 3 and 4: the kmerize path through the CLI at real size, on
     the wire path and on the u8 path, then the u8 path on the golden
     subset; returns each kernel's launches in its main-path run."""
-    from zotpu.io import container, fastq
-    from zotpu.reference_impl import golden as G
+    from zotpu_torch.io import container, fastq
+    from zotpu_torch.reference_impl import golden as G
     from zotpu_torch import kernels
     from zotpu_torch.kernels.pack import pack_canonical_plain
     from zotpu_torch.keys import SENTINEL
@@ -652,6 +817,9 @@ def phase_main_path(torch, fx, tmp):
     hwall = time.perf_counter() - t0
     say(f"  host pipeline alone (parse + wire pack + pin): {hwall:.3f} s, "
         f"{hstats.bases / hwall:.6e} bases/s")
+    pwall, busy_us = profiled(torch, lambda: run_cli(
+        ["kmerize", "-k", K, "--batch-reads", BATCH_READS, "--max-len",
+         MAX_LEN, out, fq]))
 
     say("phase 4: golden subset through the u8 path")
     sub_out = os.path.join(tmp, "subset.zkf")
@@ -679,15 +847,18 @@ def phase_main_path(torch, fx, tmp):
                     "bases_per_s": stats["bases"] / wall,
                     "u8_wall_s": uwall,
                     "unique": stats["unique"], "batches": b,
-                    "host_bases_per_s": hstats.bases / hwall}
+                    "host_bases_per_s": hstats.bases / hwall,
+                    "profiled_wall_s": pwall,
+                    "device_busy_ms": (None if busy_us is None
+                                       else busy_us / 1e3)}
 
 
 def phase_scan(torch, fx, panel, tmp):
     """Phase 5: the scan path through the CLI at real size against an
     oracle that uses neither the join module nor K4, then the golden
     subset through the u8 path; returns K4's launches in the main run."""
-    from zotpu.io import container, fastq
-    from zotpu.reference_impl import golden as G
+    from zotpu_torch.io import container, fastq
+    from zotpu_torch.reference_impl import golden as G
     from zotpu_torch import kernels
     from zotpu_torch.kernels.pack import pack_canonical_plain
     from zotpu_torch.keys import SENTINEL
@@ -783,9 +954,9 @@ def phase_evidence(torch, genome, tmp, seed):
     """Phase 6: probes -> evidence --out-reads on spiked reads of a 20 kbp
     genome slice, against golden.kmerize + evidence_from_counts and the
     golden scan of every read."""
-    from zotpu import variants as V
-    from zotpu.io import container, fastq
-    from zotpu.reference_impl import golden as G
+    from zotpu_torch import variants as V
+    from zotpu_torch.io import container, fastq
+    from zotpu_torch.reference_impl import golden as G
     from zotpu_torch import kernels
 
     seq = np.frombuffer(b"ACGT", np.uint8)[genome[2_000_000:2_020_000]]
@@ -837,7 +1008,7 @@ def main() -> int:
         print("error: no CUDA device (torch.cuda.is_available() is false)",
               file=sys.stderr)
         return 1
-    from zotpu.io import native
+    from zotpu_torch.io import native
     from zotpu_torch import _build
 
     card = card_line()
@@ -846,8 +1017,10 @@ def main() -> int:
     so, secs = _build.build()
     _build.lib()
     say(f"  kernels built in {secs:.1f} s -> {os.path.relpath(so)}")
-    say(f"  native FASTQ parser: "
-        f"{'yes' if native.get_lib() is not None else 'no (numpy parse)'}")
+    say(f"  FASTQ parser in use: {native.backend()}")
+    check(native.backend() == "native",
+          "the native FASTQ parser is built and in use (the numpy fallback "
+          "would change every end-to-end number)")
 
     dev = torch.device("cuda")
     rng = np.random.default_rng(args.seed)
@@ -866,7 +1039,8 @@ def main() -> int:
     say(f"e2e kmerize: {json.dumps(e2e)}")
     say(f"e2e scan: {json.dumps(scan)}")
     say(f"e2e sharded scan: {json.dumps(sscan)}")
-    check("jax" not in sys.modules, "no jax imported")
+    check(not any(m.split(".")[0] in ("jax", "zotpu") for m in sys.modules),
+          "neither jax nor the JAX package zotpu was imported")
 
     say(card_line())
     say(json.dumps({"kernels": [

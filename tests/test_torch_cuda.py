@@ -1,16 +1,21 @@
 """zotpu_torch kernels on the card: each CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, and the kmerize and scan CLIs on
 cuda against golden. These need a CUDA device and nvcc; elsewhere they skip.
-Run them on the card (which has no JAX, hence no conftest) with
-``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``."""
+They import nothing of the JAX package, so they run on the card (which has
+no JAX, hence no conftest) with
+``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
+
+K2, K6 and K3 with valid counts define their dense outputs up to n only
+(the slots past it are left unwritten), so those are compared over [:n]."""
 
 import numpy as np
 import pytest
 import torch
 
-from zotpu.io import container, wire
-from zotpu.reference_impl import golden as G
 from zotpu_torch import cli as tcli
+from zotpu_torch.io import container, wire
+from zotpu_torch.kernels import edge_cases as EC
+from zotpu_torch.reference_impl import golden as G
 from zotpu_torch.keys import SENTINEL
 from zotpu_torch.kernels import join as TJ
 from zotpu_torch.kernels import merge_fused as TM
@@ -21,6 +26,15 @@ from zotpu_torch.workloads import pulldown as TPD
 torch.set_num_threads(1)
 
 pytestmark = pytest.mark.cuda
+
+
+def _assert_dense_equal(got, want):
+    """(keys, counts, n) of a kernel and of its plain version: n and the
+    dense prefix [:n]."""
+    n = int(want[2])
+    assert int(got[2]) == n
+    assert torch.equal(got[0][:n], want[0][:n])
+    assert torch.equal(got[1][:n], want[1][:n])
 
 
 @pytest.fixture
@@ -53,8 +67,21 @@ def test_dedup_kernel_matches_plain(dev, n, space, frac):
     keys = np.sort(rng.integers(0, space, n))
     keys[int(n * frac):] = SENTINEL
     kd = torch.from_numpy(keys).to(dev)
-    for g, w in zip(TD.dedup_compact(kd), TD.dedup_compact_plain(kd)):
-        assert torch.equal(g, w)
+    _assert_dense_equal(TD.dedup_compact(kd), TD.dedup_compact_plain(kd))
+
+
+@pytest.mark.parametrize("n,space", [(4096, 1 << 40), (4097, 10),
+                                     (70000, 3), (12288, 1)])
+def test_dedup_kernel_tile_boundaries(dev, n, space):
+    """K2 at its tile size (4096): a full tile, one key past it, segments
+    that span many tiles (3 keys over 70000; one key over three tiles), with
+    and without a sentinel tail that starts at a tile boundary."""
+    rng = np.random.default_rng(n)
+    keys = np.sort(rng.integers(0, space, n))
+    for tail in (0, 4096, 5):
+        k = np.concatenate([keys, np.full(tail, SENTINEL, np.int64)])
+        kd = torch.from_numpy(k).to(dev)
+        _assert_dense_equal(TD.dedup_compact(kd), TD.dedup_compact_plain(kd))
 
 
 @pytest.mark.parametrize("op", ["merge", "union", "intersect", "diff"])
@@ -74,11 +101,67 @@ def test_set_op_kernel_matches_plain(dev, op, na, cap_a, nb, cap_b):
                 torch.tensor(len(k), device=dev))
 
     A, B = side(na, cap_a), side(nb, cap_b)
-    for kw in ({}, dict(n_a=A[2], n_b=B[2])):
-        got = TM.set_op_fused(A[0], A[1], B[0], B[1], op, **kw)
-        want = TM.set_op_plain(A[0], A[1], B[0], B[1], op, **kw)
-        for g, w in zip(got, want):
+    # without the valid counts every slot is defined (a sentinel tail)
+    got = TM.set_op_fused(A[0], A[1], B[0], B[1], op)
+    for g, w in zip(got, TM.set_op_plain(A[0], A[1], B[0], B[1], op)):
+        assert torch.equal(g, w)
+    kw = dict(n_a=A[2], n_b=B[2])
+    _assert_dense_equal(TM.set_op_fused(A[0], A[1], B[0], B[1], op, **kw),
+                        TM.set_op_plain(A[0], A[1], B[0], B[1], op, **kw))
+
+
+_SET_OP_EDGE = EC.set_op_cases(seed=0)
+_PACK_EDGE = EC.pack_cases(seed=0)
+
+
+@pytest.mark.parametrize("op", ["merge", "intersect", "diff"])
+@pytest.mark.parametrize("case", range(len(_SET_OP_EDGE)),
+                         ids=[c[0] for c in _SET_OP_EDGE])
+def test_set_op_kernel_edge_cases(dev, case, op):
+    """K3 on the shapes of kernels/edge_cases.py at its own tile size."""
+    _, a, b = _SET_OP_EDGE[case]
+    ka, ca = (torch.from_numpy(x).to(dev) for x in a[:2])
+    kb, cb = (torch.from_numpy(x).to(dev) for x in b[:2])
+    na, nb = (torch.tensor(x[2], device=dev) for x in (a, b))
+    before = TM.set_op_fused.launches
+    got = TM.set_op_fused(ka, ca, kb, cb, op)
+    assert TM.set_op_fused.launches == before + (len(a[0]) + len(b[0]) > 0)
+    for g, w in zip(got, TM.set_op_plain(ka, ca, kb, cb, op)):
+        assert torch.equal(g, w)
+    _assert_dense_equal(TM.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                        TM.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb))
+    # one count given, one absent: still a full sentinel tail
+    for kw in (dict(n_a=na), dict(n_b=nb)):
+        for g, w in zip(TM.set_op_fused(ka, ca, kb, cb, op, **kw),
+                        TM.set_op_plain(ka, ca, kb, cb, op, **kw)):
             assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", range(len(_PACK_EDGE)),
+                         ids=[c[0] for c in _PACK_EDGE])
+def test_pack_kernel_edge_cases(dev, case):
+    """K1a and K1b on the shapes of kernels/edge_cases.py."""
+    _, codes, lengths, k = _PACK_EDGE[case]
+    packed, mask = wire.pack_codes(codes)
+    c, n = torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev)
+    want = TP.pack_canonical_plain(c, n, k)
+    assert torch.equal(TP.pack_canonical(c, n, k), want)
+    assert torch.equal(TP.pack_canonical_wire(
+        torch.from_numpy(packed).to(dev), torch.from_numpy(mask).to(dev), n,
+        k), want)
+
+
+@pytest.mark.parametrize("R,L,k", [(1000, 150, 25), (40, 150, 31),
+                                   (3, 4096, 25), (5000, 32, 4)])
+def test_pack_u8_kernel_ragged_rows(dev, R, L, k):
+    """K1b where 32 does not divide L, where one row is several batches of
+    window groups, and where many short rows share a block."""
+    rng = np.random.default_rng(R + L)
+    codes = rng.integers(0, 5, size=(R, L)).astype(np.uint8)
+    lengths = rng.integers(0, L + 1, size=R).astype(np.int32)
+    c, n = torch.from_numpy(codes).to(dev), torch.from_numpy(lengths).to(dev)
+    assert torch.equal(TP.pack_canonical(c, n, k),
+                       TP.pack_canonical_plain(c, n, k))
 
 
 @pytest.mark.parametrize("max_len", [160, 150])
@@ -225,11 +308,9 @@ def test_merge_dedup_kernel_matches_plain(dev, nA, nB, space, frac):
     before = MD.merge_dedup_pair.launches
     got = MD.merge_dedup_pair(kd, nA)
     assert MD.merge_dedup_pair.launches == before + 1
-    for g, w in zip(got, MD.merge_dedup_plain(kd, nA)):
-        assert torch.equal(g, w)
+    _assert_dense_equal(got, MD.merge_dedup_plain(kd, nA))
     if nA == nB:
-        for g, w in zip(MD.merge_dedup_pass(kd, nA), got):
-            assert torch.equal(g, w)
+        _assert_dense_equal(MD.merge_dedup_pass(kd, nA), got)
 
 
 @pytest.mark.parametrize("n,n_rows,n_panel", [(1, 1, 8), (5000, 37, 0),

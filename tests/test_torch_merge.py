@@ -11,6 +11,7 @@ from zotpu.kernels import setops as XS
 from zotpu.kernels.merge_fused import set_op_fused as jax_set_op_fused
 from zotpu.reference_impl import golden as G
 from zotpu_torch import keys as K
+from zotpu_torch.kernels import edge_cases as EC
 from zotpu_torch.kernels import merge_fused as TM
 
 torch.set_num_threads(1)
@@ -173,3 +174,28 @@ def test_intersect_zero_count_follows_set_op_fused():
     got = _port(A, B, "intersect")
     _check(got, jax_set_op_fused(*A, *B, op="intersect", interpret=True))
     assert int(got[2]) == 1 and int(XS.set_op(*A, *B, op="intersect")[3]) == 0
+
+
+# the shapes the CUDA kernel can get wrong (zotpu_torch/kernels/edge_cases.py;
+# the card's tests and chip_smoke.py run the same list against the kernel),
+# here at a smaller tile: plain version vs the JAX package, exact
+_EDGE = EC.set_op_cases(seed=0, tile=256)
+
+
+@pytest.mark.parametrize("op", ["merge", "intersect", "diff"])
+@pytest.mark.parametrize("case", range(len(_EDGE)),
+                         ids=[c[0] for c in _EDGE])
+def test_set_op_edge_cases_match_jax(case, op):
+    name, a, b = _EDGE[case]
+    A = _dense(a[0][:a[2]].astype(np.uint64), a[1][:a[2]], len(a[0]))
+    B = _dense(b[0][:b[2]].astype(np.uint64), b[1][:b[2]], len(b[0]))
+    ta = [torch.from_numpy(x) for x in a[:2]]
+    tb = [torch.from_numpy(x) for x in b[:2]]
+    for kw in ({}, dict(n_a=torch.tensor(a[2]), n_b=torch.tensor(b[2]))):
+        got = TM.set_op_fused(*ta, *tb, op=op, **kw)
+        assert got[0].shape == (len(a[0]) + len(b[0]),)
+        if len(a[0]) + len(b[0]):
+            _check(got, XS.set_op(*A, *B, op=op))
+    if op == "merge" and name in ("pair_straddles_every_boundary",
+                                  "saturating_counts", "a_empty"):
+        _check(got, jax_set_op_fused(*A, *B, op=op, interpret=True))

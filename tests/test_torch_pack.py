@@ -9,6 +9,7 @@ from zotpu.io import wire
 from zotpu.kernels import pack as PX
 from zotpu.kernels import pack_pallas as PP
 from zotpu_torch import keys as K
+from zotpu_torch.kernels import edge_cases as EC
 from zotpu_torch.kernels import pack as TP
 
 torch.set_num_threads(1)
@@ -102,3 +103,32 @@ def test_cpu_calls_do_not_count_launches(rng):
     codes, lengths = _batch(rng, 8, 32, 5)
     TP.pack_canonical(torch.from_numpy(codes), torch.from_numpy(lengths), 5)
     assert TP.pack_canonical.launches == before
+
+
+# the shapes the CUDA kernel can get wrong (zotpu_torch/kernels/edge_cases.py;
+# the card's tests and chip_smoke.py run the same list against the kernel):
+# plain versions vs the JAX package, exact
+_EDGE = EC.pack_cases(seed=0)
+
+
+@pytest.mark.parametrize("case", range(len(_EDGE)),
+                         ids=[c[0] for c in _EDGE])
+def test_pack_edge_cases_match_jax(case):
+    _, codes, lengths, k = _EDGE[case]
+    R, L = codes.shape
+    want = _jax_keys(*PX.pack_canonical(codes, lengths, k)[:2])
+    got = TP.pack_canonical(torch.from_numpy(codes),
+                            torch.from_numpy(lengths), k)
+    assert got.shape == (R * (L - k + 1),)
+    assert torch.equal(got, want)
+    packed, mask = wire.pack_codes(codes)
+    assert torch.equal(TP.pack_canonical_wire(
+        torch.from_numpy(packed), torch.from_numpy(mask),
+        torch.from_numpy(lengths), k), want)
+    if L <= 160:        # interpret-mode Pallas costs seconds at L = 4096
+        hi, lo, _ = PP.pack_canonical_wire_pallas(packed, mask, lengths, k,
+                                                  interpret=True)
+        assert torch.equal(got, _jax_keys(hi, lo))
+    # all-T and all-A rows: T...T canonicalizes to A...A = 0
+    m = L - k + 1
+    assert torch.all(got[7 * m:9 * m] == 0)

@@ -203,8 +203,16 @@ def variant_data(tmp_path_factory):
 def test_probes_cli_matches_jax(variant_data, capsys):
     d, panels, specs, fq = variant_data
     capsys.readouterr()
-    assert panels["port"].read_bytes() == panels["jax"].read_bytes()
-    assert len(container.read(str(panels["port"])).meta["variants"]) == 2
+    port = container.read(str(panels["port"]))
+    jax_ = container.read(str(panels["jax"]))
+    # the same file apart from the tool's name in the meta
+    assert port.meta.pop("tool") == "zotpu_torch probes"
+    assert jax_.meta.pop("tool") == "zotpu probes"
+    assert port.meta == jax_.meta and port.k == jax_.k
+    assert port.counts is None and jax_.counts is None
+    assert port.keys.dtype == jax_.keys.dtype
+    assert port.keys.tobytes() == jax_.keys.tobytes()
+    assert len(port.meta["variants"]) == 2
 
 
 @pytest.mark.parametrize("min_hits", [1, 3, 0])

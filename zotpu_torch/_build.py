@@ -42,9 +42,10 @@ _SIGNATURES = {
     "zt_set_op_scratch_elems": (_I64, [_I64, _I64]),
     "zt_set_op": (_I32, [_I32, _P, _P, _I64, _P, _P, _P, _I64, _P, _P, _P,
                          _P, _P, _P]),
-    "zt_join_row_hits": (_I32, [_P, _I64, _P, _I64, _I32, _P, _P]),
+    "zt_join_scratch_elems": (_I64, [_I64]),
+    "zt_join_row_hits": (_I32, [_P, _I64, _P, _I64, _I32, _P, _P, _P]),
     "zt_join_row_hits_tagged": (_I32, [_P, _I64, _P, _P, _I64, _I64, _P,
-                                       _P]),
+                                       _P, _P]),
     "zt_merge_runs": (_I32, [_P, _P, _I64, _I64, _I64, _P, _P, _P]),
     "zt_merge_dedup_scratch_elems": (_I64, [_I64]),
     "zt_merge_dedup": (_I32, [_P, _I64, _I64, _P, _P, _P, _P, _P]),

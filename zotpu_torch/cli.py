@@ -19,7 +19,8 @@ print the same lines and write the same read files as their ``zotpu``
 counterparts. ``--device`` defaults to cuda and never falls back: without
 a CUDA device it exits 1. ``--device cpu`` runs the kernels' plain PyTorch
 versions; ``--host`` runs the golden numpy reference. ``probes``, ``query``
-and ``verify`` are host-only and are the JAX package's own commands.
+and ``verify`` are host-only copies of the JAX package's commands (the
+``probes`` container's meta names this tool).
 
 ``--shards N`` (a power of two) runs ``kmerize`` and ``scan`` sharded over
 N device slots of one process: ``cuda:0 .. cuda:N-1`` (N above the visible
@@ -39,9 +40,11 @@ import sys
 import numpy as np
 import torch
 
-from zotpu import cli as zotpu_cli
-from zotpu.io import container, fastq
-from zotpu.reference_impl import golden as G
+from zotpu_torch import semantics as S
+from zotpu_torch import variants as V
+from zotpu_torch.io import container, fastq
+from zotpu_torch.reference_impl import golden as G
+from zotpu_torch.sparse import SparseSet
 
 
 def _device(name: str) -> torch.device:
@@ -59,6 +62,37 @@ def _no_multihost(args, command: str) -> None:
             f"--process-id) are not yet ported to zotpu_torch (multi-device "
             f"runs across processes); run `python -m zotpu {command}` with "
             f"them")
+
+
+def _load_padded(path: str):
+    ks = container.read(path)
+    counts = ks.counts if ks.counts is not None else np.ones(ks.n, S.COUNT_DTYPE)
+    return ks, counts
+
+
+def _read_all_seqs(paths):
+    seqs = []
+    for p in paths:
+        fmt = fastq.sniff_format(p)
+        with fastq.open_file(p) as f:
+            if fmt == "fastq":
+                seqs.extend(s for _, s, _ in fastq.read_fastq(f))
+            else:
+                seqs.extend(s for _, s in fastq.read_fasta(f))
+    return seqs
+
+
+def _write_hit_reads(out_fh, path, per_read, min_hits):
+    """Pull down reads with >= min_hits panel k-mers as FASTQ records."""
+    fmt = fastq.sniff_format(path)
+    with fastq.open_file(path) as f:
+        if fmt == "fastq":
+            recs = fastq.read_fastq(f)
+        else:
+            recs = ((name, seq, "I" * len(seq)) for name, seq in fastq.read_fasta(f))
+        for i, (rid, seq, qual) in enumerate(recs):
+            if i < len(per_read) and per_read[i] >= min_hits:
+                out_fh.write(f"@{rid}\n{seq}\n+\n{qual}\n")
 
 
 def cmd_kmerize(args):
@@ -93,12 +127,12 @@ def cmd_scan(args):
     and --per-read rows stay record-aligned."""
     _no_multihost(args, "scan")
     device = None if args.host else _device(args.device)
-    panel, _ = zotpu_cli._load_padded(args.panel)
+    panel, _ = _load_padded(args.panel)
     if args.host:
         results = []
         for p in args.samples:
             hits = G.scan_panel(panel.k, panel.keys,
-                                zotpu_cli._read_all_seqs([p]))
+                                _read_all_seqs([p]))
             results.append((int(hits.sum()), int((hits > 0).sum()),
                             [int(h) for h in hits]))
     elif args.shards > 1:
@@ -121,7 +155,7 @@ def cmd_scan(args):
             for i, h in enumerate(per_read):
                 print(f"{path}\t{i}\t{h}")
         if out_fh is not None:
-            zotpu_cli._write_hit_reads(out_fh, path, per_read, args.min_hits)
+            _write_hit_reads(out_fh, path, per_read, args.min_hits)
     if out_fh is not None:
         out_fh.close()
     return 0
@@ -173,7 +207,7 @@ def _write_variant_reads(args, meta, k, sample, device):
 
     # 1. one scan of the whole sample vs the union panel
     if args.host:
-        seqs = zotpu_cli._read_all_seqs([sample])
+        seqs = _read_all_seqs([sample])
         union_hits = [int(h) for h in G.scan_panel(k, union, seqs)]
     else:
         _, _, union_hits = pulldown.pulldown_paths(
@@ -209,7 +243,6 @@ def cmd_evidence(args):
     """Screen read sets for variant evidence against a probe panel
     (zotpu/cli.py cmd_evidence): kmerize each sample, then read each
     variant's ref/alt probe counts from its k-mer set."""
-    from zotpu import variants as V
     from zotpu_torch.workloads import kmerize as W
     device = None if args.host else _device(args.device)
     hdr = container.read(args.panel)
@@ -220,7 +253,7 @@ def cmd_evidence(args):
     k = hdr.k
     for sample in args.samples:
         if args.host:
-            keys, counts = G.kmerize(k, zotpu_cli._read_all_seqs([sample]))
+            keys, counts = G.kmerize(k, _read_all_seqs([sample]))
         else:
             keys, counts = W.kmerize_paths(
                 [sample], k, batch_reads=args.batch_reads,
@@ -234,6 +267,120 @@ def cmd_evidence(args):
                               "out_reads": args.out_reads,
                               "supporting_reads": written}))
     return 0
+
+
+def _expand_variant_specs(specs):
+    """Expand ``@FILE`` entries into the HGVS specs the file lists.
+
+    Clinical panels run to hundreds of variants, which do not fit argv
+    comfortably; ``@vars.txt`` reads one spec per line (blank lines and
+    ``#`` comments skipped). Plain specs pass through unchanged."""
+    out = []
+    for s in specs:
+        if s.startswith("@"):
+            with open(s[1:]) as f:
+                for line in f:
+                    line = line.split("#", 1)[0].strip()
+                    if line:
+                        out.append(line)
+        else:
+            out.append(s)
+    return out
+
+
+def cmd_probes(args):
+    """Variant descriptions -> discriminating k-mer probe panel (ZKF).
+
+    Reference analog: zotmer's HGVS probe generation (SURVEY.md section 2a
+    clinical family); per-variant ref/alt probe lists ride in the container
+    metadata for host-side attribution by `evidence`."""
+    args.variants = _expand_variant_specs(args.variants)
+    keys, meta = V.build_panel(args.variants, args.reference, args.k,
+                               transcripts_path=args.transcripts)
+    container.write(args.output, container.KmerSet(
+        k=args.k, keys=keys, counts=None,
+        meta={"tool": "zotpu_torch probes", **meta}),
+        codec=args.codec or "raw")
+    print(json.dumps({"command": "probes", "variants": len(args.variants),
+                      "probes": len(keys)}))
+    return 0
+
+
+def cmd_query(args):
+    """Point lookups: k-mer strings (or every k-mer of longer sequences with
+    --seq) -> counts in a set.
+
+    Reference analog: zotmer's sparse rank/select membership surface
+    (SURVEY.md section 2a "sparse/succinct set") exposed interactively --
+    the CLI front door to zotpu_torch/sparse.py. Queries canonicalize first, so
+    either strand of a k-mer finds its count."""
+    ks, counts = _load_padded(args.input)
+    k = ks.k
+    sset = SparseSet(ks.keys)
+    # same @FILE expansion as the variant commands
+    specs = _expand_variant_specs(args.kmers)
+    found = 0
+    for q in specs:
+        qs = q.upper()
+        if not args.seq and len(qs) != k:
+            raise ValueError(f"query {q!r} is {len(qs)} bases; the set has "
+                             f"k={k} (use --seq to query every k-mer of a "
+                             f"longer sequence)")
+        keys = G.kmerize_seq(k, qs)
+        if len(keys) == 0:
+            print(json.dumps({"query": q, "count": 0,
+                              "note": "no valid ACGT window"}))
+            continue
+        uniq = np.unique(keys)
+        if ks.n == 0:  # empty set: every query misses (counts[0] would
+            # IndexError through the eager np.where)
+            mask = np.zeros(len(uniq), bool)
+            cnt = np.zeros(len(uniq), np.int64)
+        else:
+            mask = sset.access(uniq)
+            cnt = np.where(mask, counts[np.minimum(sset.rank(uniq),
+                                                   ks.n - 1)], 0)
+        if args.seq:
+            print(json.dumps({
+                "query": q, "kmers": int(len(keys)),
+                "distinct": int(len(uniq)), "present": int(mask.sum()),
+                "total_count": int(cnt.sum())}))
+        else:
+            print(json.dumps({"query": q, "count": int(cnt[0])}))
+        found += int(mask.sum())
+    return 0 if found or not specs else 1
+
+
+def cmd_verify(args):
+    a, ca = _load_padded(args.a)
+    b, cb = _load_padded(args.b)
+    if a.k != b.k:
+        print(json.dumps({"equal": False, "reason": f"k {a.k} != {b.k}"}))
+        return 1
+    if (a.counts is None) != (b.counts is None) and not args.as_sets:
+        # a counts-less kset is a membership set, not an all-ones kfset;
+        # reporting them equal hid a real format difference. --as-sets opts
+        # into the membership-only comparison.
+        which = args.a if a.counts is None else args.b
+        print(json.dumps({"equal": False,
+                          "reason": f"{which} has no counts (kset vs kfset; "
+                                    f"pass --as-sets to compare membership "
+                                    f"only)"}))
+        return 1
+    n = min(a.n, b.n)
+    kdiff = np.nonzero(a.keys[:n] != b.keys[:n])[0]
+    cdiff = (np.empty(0, np.int64) if args.as_sets
+             else np.nonzero(ca[:n] != cb[:n])[0])
+    first = min(
+        int(kdiff[0]) if len(kdiff) else n if a.n != b.n else -1,
+        int(cdiff[0]) if len(cdiff) else n if a.n != b.n else -1,
+        key=lambda x: x if x >= 0 else 1 << 62)
+    if first == -1:
+        print(json.dumps({"equal": True, "n": int(a.n)}))
+        return 0
+    print(json.dumps({"equal": False, "first_divergence": int(first),
+                      "n_a": int(a.n), "n_b": int(b.n)}))
+    return 1
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -322,7 +469,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "coordinates (name chrom strand txStart txEnd "
                          "cdsStart cdsEnd exonCount exonStarts exonEnds)")
     out_codec(sp)
-    sp.set_defaults(fn=zotpu_cli.cmd_probes)
+    sp.set_defaults(fn=cmd_probes)
 
     sp = sub.add_parser("evidence",
                         help="variant evidence in read sets vs a probe panel")
@@ -344,14 +491,14 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--seq", action="store_true",
                     help="treat queries as longer sequences; report how many "
                          "of their k-mers are present")
-    sp.set_defaults(fn=zotpu_cli.cmd_query)
+    sp.set_defaults(fn=cmd_query)
 
     sp = sub.add_parser("verify", help="compare two sets byte-for-byte")
     sp.add_argument("a")
     sp.add_argument("b")
     sp.add_argument("--as-sets", action="store_true",
                     help="compare membership only")
-    sp.set_defaults(fn=zotpu_cli.cmd_verify)
+    sp.set_defaults(fn=cmd_verify)
     return p
 
 

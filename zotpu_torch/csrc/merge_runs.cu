@@ -35,9 +35,9 @@
 // TILE_E-aligned capacities). Sentinel (INT64_MAX) pads merge as keys and
 // land at the end of each merged run.
 //
-// K6 first version: merge into scratch, then K2's device pipeline (count
-// segment firsts, scan of block totals, scatter, count = next start -
-// start) over it in the same C entry point. Equal-key segments may be any
+// K6 first version: merge into scratch, then K2's device pipeline (one
+// pass with a look-back, then the tiles' last segments closed; dedup.cu)
+// over it in the same C entry point. Equal-key segments may be any
 // length and span any number of blocks. With an empty B (nB = 0) the merge
 // is the identity and is skipped. A one-pass fused K6 is later work.
 
@@ -172,7 +172,7 @@ extern "C" long long zt_merge_dedup_scratch_elems(long long n) {
 
 // keys: n > 0 int64, A = [0, a_len) and B = [a_len, n) ascending runs with
 // INT64_MAX pads -> ukeys/counts (n each): the dense unique keys of their
-// merge with occurrence counts, INT64_MAX / 0 beyond, and *n_out.
+// merge with occurrence counts in [0, *n_out), and *n_out.
 extern "C" int zt_merge_dedup(const void* keys_v, long long n, long long a_len,
                               void* ukeys, void* counts, void* n_out,
                               void* scratch_v, void* stream_v) {

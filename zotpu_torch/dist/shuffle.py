@@ -31,7 +31,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from zotpu import semantics as S
+from zotpu_torch import semantics as S
 from zotpu_torch.dist.mesh import shard_bits
 from zotpu_torch.kernels.join import row_hits_tagged
 from zotpu_torch.kernels.merge_dedup import merge_dedup_pair, merge_dedup_pass

@@ -12,8 +12,9 @@ counts: repeats within a read, and both strands of one canonical key.
 On a CPU tensor the wrapper runs the plain version, which keeps the JAX
 package's sort-merge formulation (``_transform_keys``, ``_join_xla_star``,
 ``_hits_from_merged_star``, ``_rowsum_by_idx``). On a CUDA tensor it
-launches the kernel of csrc/join.cu, one binary search per window, or
-raises; so the kernel is held against an independent algorithm. The sparse
+launches the kernels of csrc/join.cu (a bucket directory over the panel,
+built on every call, then one short search per window) or raises; so the
+kernel is held against an independent algorithm. The sparse
 hit-tag path and its dense fallback (join.py:262-273) are not ported: they
 worked around the TPU's lack of gather and scatter, and the kernel has no
 capacity that could truncate.
@@ -43,6 +44,9 @@ def _check_keys(panel, probes) -> None:
             raise ValueError(f"{name} must be contiguous")
     if panel.device != probes.device:
         raise ValueError("panel and probes must be on one device")
+    if panel.shape[0] >= 1 << 31:
+        raise ValueError(f"a panel of {panel.shape[0]} slots exceeds the "
+                         f"kernel's int32 directory; shard the panel")
 
 
 def _check(panel, probes, n_rows: int, m_per_row: int) -> None:
@@ -92,6 +96,12 @@ def _join_star(panel, probes, tags, n_rows: int):
     return tag * 2 + hit.to(torch.int64)
 
 
+def _scratch(panel):
+    """The words the kernels' bucket directory takes for this panel."""
+    return torch.empty(_build.lib().zt_join_scratch_elems(panel.shape[0]),
+                       dtype=torch.int64, device=panel.device)
+
+
 def row_hits_plain(panel, probes, n_rows: int, m_per_row: int):
     """Plain PyTorch version of row_hits_sorted_join (any device): the JAX
     package's sort-merge join, then ``_rowsum_by_idx``: each row id appears
@@ -117,7 +127,7 @@ def row_hits_sorted_join(panel, probes, n_rows: int, m_per_row: int):
     if n_rows:
         _build.launch(probes.device, "zt_join_row_hits", panel.data_ptr(),
                       panel.shape[0], probes.data_ptr(), n_rows, m_per_row,
-                      out.data_ptr())
+                      out.data_ptr(), _scratch(panel).data_ptr())
         row_hits_sorted_join.launches += 1
     return out
 
@@ -158,7 +168,7 @@ def row_hits_tagged(panel, probes, tags, n_rows: int):
         _build.launch(probes.device, "zt_join_row_hits_tagged",
                       panel.data_ptr(), panel.shape[0], probes.data_ptr(),
                       tags.data_ptr(), probes.shape[0], n_rows,
-                      out.data_ptr())
+                      out.data_ptr(), _scratch(panel).data_ptr())
         row_hits_tagged.launches += 1
     return out
 

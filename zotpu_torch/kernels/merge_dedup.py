@@ -6,10 +6,12 @@ the last level of the sharded kmerize receive tree
 (``dist.shuffle.merge_received_runs(dedup=True)``). The inputs are raw
 routed keys, ascending runs A = [:nA] and B = [nA:] with duplicates on
 both sides and INT64_MAX pads; an equal-key segment may be any length.
-The output is dense: the unique keys up front with int64 occurrence counts,
-INT64_MAX / 0 beyond ``n_out`` (a 0-d int64 device tensor). Its capacity
-is the input length: the TPU's append slack (``dedup_out_cap``) is not
-kept. ``nB = 0`` is a single-run dedup.
+The output is dense: the unique keys up front with int64 occurrence counts
+in ``[:n_out]`` (a 0-d int64 device tensor); as with K2, whose pipeline
+writes it, the slots at or past ``n_out`` are unspecified on a CUDA tensor
+and INT64_MAX / 0 from the plain version. Its capacity is the input
+length: the TPU's append slack (``dedup_out_cap``) is not kept. ``nB = 0``
+is a single-run dedup.
 
 The CUDA kernel (csrc/merge_runs.cu) merges into scratch and runs K2's
 device pipeline over it in the same entry point. On a CPU tensor the

@@ -14,9 +14,19 @@ sentinel tail. Ops (semantics.py count policy, ``_combine_policy``):
 
 ``n_a`` / ``n_b`` (optional 0-d int64 tensors on the inputs' device) are the
 valid-prefix lengths: the kernel reads them on the device (no host sync) and
-skips every output tile past ``n_a + n_b``. The output is the same with or
-without them. Output capacity is len(A) + len(B); ``n_out`` is a 0-d int64
-tensor.
+does no work past ``n_a + n_b``. Output capacity is len(A) + len(B);
+``n_out`` is a 0-d int64 tensor.
+
+The output contract: ``out[:n_out]`` is the dense result, the same with or
+without the valid counts. What lies at or past ``n_out`` depends on how the
+caller works. A caller that gives both ``n_a`` and ``n_b`` works with valid
+counts (the accumulator's next merge reads ``[:n]``, ``result()`` copies
+``[:n]``), so nothing reads those slots and on a CUDA tensor they are left
+unwritten: treat them as unspecified. A caller that leaves a count out
+works with whole sentinel-tailed arrays and may pass the output on the
+same way, so every slot at or past ``n_out`` then holds SENTINEL / 0. The
+plain version fills the tail with SENTINEL / 0 in both cases, which meets
+either contract.
 """
 
 from __future__ import annotations
@@ -84,7 +94,9 @@ def _check_side(k, c, n, device, name):
 
 def set_op_fused(ka, ca, kb, cb, op: str = "merge", n_a=None, n_b=None):
     """Two dense sorted unique (keys, counts) sets -> dense (keys, counts,
-    n_out) of capacity len(A) + len(B)."""
+    n_out) of capacity len(A) + len(B). Only ``[:n_out]`` is defined when
+    both valid counts are given; without one of them the tail is SENTINEL
+    / 0 (see the module docstring)."""
     if op not in OPS:
         raise ValueError(f"unknown set op {op!r}")
     device = ka.device
@@ -97,7 +109,6 @@ def set_op_fused(ka, ca, kb, cb, op: str = "merge", n_a=None, n_b=None):
     MA, MB = ka.shape[0], kb.shape[0]
     if MA + MB == 0:
         return ka.new_empty(0), ca.new_empty(0), ka.new_zeros(())
-    # the kernel writes every slot: the dense result, then the sentinel tail
     out_k = torch.empty(MA + MB, dtype=torch.int64, device=device)
     out_c = torch.empty(MA + MB, dtype=torch.int64, device=device)
     n_out = torch.empty((), dtype=torch.int64, device=device)

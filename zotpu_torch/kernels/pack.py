@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import torch
 
-from zotpu import semantics as S
+from zotpu_torch import semantics as S
 from zotpu_torch import _build
 from zotpu_torch.keys import SENTINEL
 

@@ -7,8 +7,12 @@ kernel, so its counterpart is ``torch.sort``. The sentinel-MARKED form
 (``dedup_mark_sorted`` / ``compact_sorted``) is not ported: it existed to
 skip a second XLA sort, and the port emits dense runs everywhere.
 
-Output is dense: unique keys up front with their counts, the sentinel / 0
-beyond ``n_unique`` (a 0-d int64 device tensor), capacity = input length.
+Output is dense: unique keys up front with their counts in
+``[:n_unique]`` (a 0-d int64 device tensor), capacity = input length. Every
+consumer (the accumulators, the receive tree) carries ``n_unique`` along
+and reads only that prefix, so the CUDA kernel leaves the slots at or past
+``n_unique`` unwritten: treat them as unspecified. The plain version fills
+them with the sentinel / 0.
 """
 
 from __future__ import annotations
@@ -38,7 +42,8 @@ def dedup_compact_plain(keys):
 
 def dedup_compact(keys):
     """Sorted int64 keys with duplicates and a sentinel tail -> dense
-    (ukeys, counts, n_unique). One pass over the keys, no sort."""
+    (ukeys, counts, n_unique), defined in ``[:n_unique]`` (see the module
+    docstring). One pass over the keys, no sort."""
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise ValueError(f"keys must be 1-D int64, got {tuple(keys.shape)} "
                          f"{keys.dtype}")

@@ -14,7 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zotpu import semantics as S
+from zotpu_torch import semantics as S
 
 SENTINEL = (1 << 63) - 1
 COUNT_MAX = int(S.COUNT_MAX)

@@ -29,9 +29,9 @@ import os
 import numpy as np
 import torch
 
-from zotpu import semantics as S
-from zotpu.io import fastq, wire
-from zotpu.io.prefetch import prefetch, prefetch_many
+from zotpu_torch import semantics as S
+from zotpu_torch.io import fastq, wire
+from zotpu_torch.io.prefetch import prefetch, prefetch_many
 from zotpu_torch.dist import shuffle
 from zotpu_torch.dist.mesh import make_mesh
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire

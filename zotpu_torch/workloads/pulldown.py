@@ -25,8 +25,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from zotpu.io import fastq
-from zotpu.io.prefetch import prefetch
+from zotpu_torch.io import fastq
+from zotpu_torch.io.prefetch import prefetch
 from zotpu_torch.dist import shuffle
 from zotpu_torch.kernels.join import row_hits_sorted_join
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
