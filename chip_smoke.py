@@ -7,8 +7,9 @@ Phases (any failure exits non-zero; no exception is caught):
 
 1. the card's name and power limit (nvidia-smi), then the kernel build
    and the native FASTQ parser's (the numpy fallback in use is a failure);
-2. the card's device-to-device copy rate; the set-op and pack kernels on
-   the edge shapes of ``zotpu_torch/kernels/edge_cases.py``; then each
+2. the card's device-to-device copy rate; the set-op, pack and
+   receive-tree kernels (K3, K1, K5-K7) on the edge shapes of
+   ``zotpu_torch/kernels/edge_cases.py``; then each
    kernel against its plain PyTorch version on the same CUDA tensors at
    the main path's shapes (a batch of 65,536 reads x 160, k=25; the join
    against the scan panel of phase 5; the set-op kernel also at the
@@ -197,6 +198,8 @@ def measure(torch, name, kernel, plain, nbytes, defined=None, library=None):
     library_ms = None if library is None else cuda_ms(torch, library)
     bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
     copy_bound_ms = nbytes / COPY_RATE["bytes_per_s"] * 1e3
+    check(bound_ms <= ms, f"{name}: the bound {bound_ms:.4f} ms exceeds the "
+          f"kernel's {ms:.4f} ms, so the contract bytes are counted wrong")
     say(f"  {name}: max_abs_err={err} kernel {ms:.4f} ms ({eager_ms:.4f} "
         f"ms called from an idle stream), plain {plain_ms:.4f} ms, library "
         f"call "
@@ -463,13 +466,16 @@ def phase_kernels(torch, dev, rng, genome, panel):
 
 
 def phase_edge_cases(torch, dev):
-    """The shapes the set-op and pack kernels can get wrong
+    """The shapes the set-op, pack and receive-tree kernels can get wrong
     (zotpu_torch/kernels/edge_cases.py), kernel against plain version,
     exact: K3 on every op with and without the valid counts, K1 on both
-    input forms."""
+    input forms, K5 and K7 on every pass and pair (the payload of sentinel
+    rows included), K6 over its dense prefix."""
     from zotpu_torch.io import wire
     from zotpu_torch.kernels import edge_cases as EC
+    from zotpu_torch.kernels import merge_dedup as MD
     from zotpu_torch.kernels import merge_fused as M
+    from zotpu_torch.kernels import merge_runs as MR
     from zotpu_torch.kernels import pack as P
 
     cases = EC.set_op_cases()
@@ -495,8 +501,24 @@ def phase_edge_cases(torch, dev):
         compare(torch, f"K1a {name}", P.pack_canonical_wire(
             torch.from_numpy(packed.view(np.int32)).to(dev),
             torch.from_numpy(mask.view(np.int32)).to(dev), n, k), want)
+    merges = EC.merge_runs_cases()
+    for name, keys, tags, kind, arg in merges:
+        k, t = torch.from_numpy(keys).to(dev), torch.from_numpy(tags).to(dev)
+        fn = MR.merge_runs_pass if kind == "pass" else MR.merge_runs_pair
+        pair_len, a_len = ((2 * arg, arg) if kind == "pass"
+                           else (max(len(keys), 1), arg))
+        compare(torch, f"K5 {name}", fn(k, None, arg),
+                MR.merge_plain(k, None, pair_len, a_len))
+        compare(torch, f"K7 {name}", fn(k, t, arg),
+                MR.merge_plain(k, t, pair_len, a_len))
+    dedups = EC.merge_dedup_cases()
+    for name, keys, n_a in dedups:
+        k = torch.from_numpy(keys).to(dev)
+        compare(torch, f"K6 {name}", MD.merge_dedup_pair(k, n_a),
+                MD.merge_dedup_plain(k, n_a), dense_prefix)
     say(f"  edge shapes: K3 {len(cases)} cases x 3 ops x (with, without "
-        f"valid counts), K1 {len(packs)} cases x (wire, u8): all exact")
+        f"valid counts), K1 {len(packs)} cases x (wire, u8), K5 and K7 "
+        f"{len(merges)} cases each, K6 {len(dedups)} cases: all exact")
 
 
 def phase_shard_kernels(torch, dev, rng, genome, panel):
@@ -549,11 +571,17 @@ def phase_shard_kernels(torch, dev, rng, genome, panel):
         rk.shape[0] * 16)
     half, _ = MR.merge_runs_pass(rk, None, cap)
     n_k6 = int(MD.merge_dedup_pass(half, 2 * cap)[2])
+    # what K6 must move: the valid keys in, the dense result out (as K3's
+    # row counts valid elements only); the sentinel capacity is no input
+    # of the function
+    say(f"  K6: {n_valid} valid keys of {half.shape[0]} slots, {n_k6} "
+        f"unique; counting the whole capacity as input, as earlier runs of "
+        f"this script did, gives {half.shape[0] * 8 + n_k6 * 16 + 8} bytes")
     rows["merge_dedup"] = measure(
         torch, f"merge_dedup_pass run={2 * cap} (K6)",
         lambda: MD.merge_dedup_pass(half, 2 * cap),
         lambda: MD.merge_dedup_plain(half, 2 * cap),
-        half.shape[0] * 8 + n_k6 * 16 + 8, defined=dense_prefix)
+        n_valid * 8 + n_k6 * 16 + 8, defined=dense_prefix)
     rows["merge_runs_payload"] = measure(
         torch, f"merge_runs_pass run={cap} with row ids (K7)",
         lambda: MR.merge_runs_pass(rk, rt, cap),

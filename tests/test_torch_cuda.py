@@ -313,6 +313,42 @@ def test_merge_dedup_kernel_matches_plain(dev, nA, nB, space, frac):
         _assert_dense_equal(MD.merge_dedup_pass(kd, nA), got)
 
 
+MERGE_CASES = EC.merge_runs_cases()
+DEDUP_CASES = EC.merge_dedup_cases()
+
+
+@pytest.mark.parametrize("pay", [False, True], ids=["K5", "K7"])
+@pytest.mark.parametrize("name", [c[0] for c in MERGE_CASES])
+def test_merge_runs_kernel_edge_cases(dev, name, pay):
+    """K5 / K7 on the receive tree's edge shapes at the kernel's tile
+    (edge_cases.merge_runs_cases) against the plain version, exact: keys
+    and, A first on ties, the payload of every row, sentinel rows too."""
+    from zotpu_torch.kernels import merge_runs as MR
+    _, keys, tags, kind, arg = next(c for c in MERGE_CASES if c[0] == name)
+    k = torch.from_numpy(keys).to(dev)
+    t = torch.from_numpy(tags).to(dev) if pay else None
+    fn = MR.merge_runs_pass if kind == "pass" else MR.merge_runs_pair
+    pair_len, a_len = ((2 * arg, arg) if kind == "pass"
+                       else (max(len(keys), 1), arg))
+    got, want = fn(k, t, arg), MR.merge_plain(k, t, pair_len, a_len)
+    assert torch.equal(got[0], want[0])
+    assert (got[1] is None) == (not pay)
+    if pay:
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("name", [c[0] for c in DEDUP_CASES])
+def test_merge_dedup_kernel_edge_cases(dev, name):
+    """K6 on the receive tree's edge shapes (one key over many tiles, ties
+    across every boundary, an empty or all-sentinel side, n_out 0) against
+    the plain version: n_out and the dense prefix, exact."""
+    from zotpu_torch.kernels import merge_dedup as MD
+    _, keys, n_a = next(c for c in DEDUP_CASES if c[0] == name)
+    k = torch.from_numpy(keys).to(dev)
+    _assert_dense_equal(MD.merge_dedup_pair(k, n_a),
+                        MD.merge_dedup_plain(k, n_a))
+
+
 @pytest.mark.parametrize("n,n_rows,n_panel", [(1, 1, 8), (5000, 37, 0),
                                               (200000, 4096, 70000)])
 def test_row_hits_tagged_kernel_matches_plain(dev, n, n_rows, n_panel):

@@ -15,6 +15,7 @@ import torch
 from zotpu import semantics as S
 from zotpu.kernels.sort_pallas import TILE_E
 from zotpu_torch import keys as K
+from zotpu_torch.kernels import edge_cases as EC
 from zotpu_torch.kernels import join as TJ
 from zotpu_torch.kernels import merge_dedup as MD
 from zotpu_torch.kernels import merge_runs as MR
@@ -202,6 +203,126 @@ def test_merge_dedup_plain_matches_numpy(rng, nA, nB, space):
     assert int(n) == len(uk) and ukeys.shape[0] == nA + nB
     assert np.array_equal(ukeys[:len(uk)].numpy(), uk)
     assert np.array_equal(counts[:len(uk)].numpy(), uc)
+
+
+# The receive tree's edge shapes (kernels/edge_cases.py) at a small tile:
+# the plain versions do not know the tile, the shapes keep their form.
+EDGE_TILE = 256
+MERGE_CASES = EC.merge_runs_cases(tile=EDGE_TILE)
+DEDUP_CASES = EC.merge_dedup_cases(tile=EDGE_TILE)
+
+
+def _case(cases, name):
+    return next(c for c in cases if c[0] == name)
+
+
+def _merge_case(keys, tags, kind, arg):
+    """The wrapper call an edge case names, and its (pair_len, a_len)."""
+    fn = MR.merge_runs_pass if kind == "pass" else MR.merge_runs_pair
+    out = fn(torch.from_numpy(keys), None if tags is None
+             else torch.from_numpy(tags), arg)
+    return out, (2 * arg, arg) if kind == "pass" else (max(len(keys), 1), arg)
+
+
+@pytest.mark.parametrize("pay", [False, True], ids=["K5", "K7"])
+@pytest.mark.parametrize("name", [c[0] for c in MERGE_CASES])
+def test_merge_runs_edge_cases_match_numpy(name, pay):
+    """K5 / K7 plain version on every edge shape against numpy's stable
+    argsort of each pair: keys, and the payload in A-first order."""
+    _, keys, tags, kind, arg = _case(MERGE_CASES, name)
+    (got_k, got_t), (pair_len, _) = _merge_case(keys, tags if pay else None,
+                                                kind, arg)
+    order = np.concatenate(
+        [i + np.argsort(keys[i:i + pair_len], kind="stable")
+         for i in range(0, len(keys), pair_len)])
+    assert np.array_equal(got_k.numpy(), keys[order])
+    if pay:
+        assert np.array_equal(got_t.numpy(), tags[order])
+    else:
+        assert got_t is None
+
+
+@pytest.mark.parametrize("name", [c[0] for c in DEDUP_CASES])
+def test_merge_dedup_edge_cases_match_numpy(name):
+    """K6 plain version on every edge shape against numpy's unique counts
+    of the valid keys; a sentinel / zero tail past n_out."""
+    _, keys, nA = _case(DEDUP_CASES, name)
+    uk, uc = np.unique(keys[keys != K.SENTINEL], return_counts=True)
+    got = MD.merge_dedup_pair(torch.from_numpy(keys), nA)
+    assert got[0].shape[0] == len(keys)
+    _assert_dense_equal(got, torch.from_numpy(uk), torch.from_numpy(uc),
+                        len(uk))
+
+
+def _jax_pair(keys, nA, descending_b):
+    """An edge case's pair as the JAX kernels take it: (hi, lo) of A and B,
+    each padded with sentinels to a multiple of TILE_E (the merge of the
+    valid keys is the same), B stored descending where the kernel's tree
+    convention says so; and the padded nA."""
+    sides = []
+    for side in (keys[:nA], keys[nA:]):
+        cap = max(-(-len(side) // TILE_E), 1) * TILE_E
+        u = np.full(cap, SENT_U64, np.uint64)
+        valid = side[side != K.SENTINEL]
+        u[:len(valid)] = valid.astype(np.uint64)
+        sides.append(u)
+    a, b = sides
+    hi, lo = S.split_hi_lo(np.concatenate([a, b[::-1] if descending_b
+                                           else b]))
+    return jnp.asarray(hi), jnp.asarray(lo), len(a)
+
+
+@pytest.mark.parametrize("name", ["ties_of_six", "one_key_over_many_tiles",
+                                  "a_wholly_above_b"])
+def test_merge_runs_edge_cases_match_jax_interpret(name):
+    """K5 and K7 plain versions against tree_merge_pair_alt and
+    stream_merge_pair_pallas (interpret mode) on a subset of the edge
+    shapes. Keys are equal over the valid prefix; (key, tag) is equal as a
+    multiset (the JAX network may reorder tags within an equal-key
+    segment)."""
+    from zotpu.kernels.sort_pallas import (stream_merge_pair_pallas,
+                                           tree_merge_pair_alt)
+    _, keys, tags, kind, arg = _case(MERGE_CASES, name)
+    assert kind == "pair"
+    (got_k, got_t), _ = _merge_case(keys, tags, kind, arg)
+    valid = int((keys != K.SENTINEL).sum())
+    hi, lo, nA = _jax_pair(keys, arg, descending_b=True)
+    jk = _from_jax(*tree_merge_pair_alt(hi, lo, nA, interpret=True))
+    assert torch.equal(got_k[:valid], jk[:valid])
+    assert torch.all(jk[valid:] == K.SENTINEL)
+    # the payload rides beside its key: pad the tags as the keys were padded
+    hi, lo, nA = _jax_pair(keys, arg, descending_b=False)
+    jt = np.zeros(hi.shape[0], np.uint32)
+    for src, dst in ((slice(0, arg), 0), (slice(arg, None), nA)):
+        ok = keys[src] != K.SENTINEL
+        jt[dst:dst + int(ok.sum())] = tags[src][ok]
+    gh, gl, gt = stream_merge_pair_pallas(hi, lo, jnp.asarray(jt), nA,
+                                          interpret=True)
+    jk = _from_jax(gh, gl)
+    assert torch.equal(got_k[:valid], jk[:valid])
+    got = np.stack([got_k[:valid].numpy(), got_t[:valid].numpy()])
+    want = np.stack([jk[:valid].numpy(),
+                     np.asarray(gt)[:valid].astype(np.int64)])
+    assert np.array_equal(got[:, np.lexsort(got[::-1])],
+                          want[:, np.lexsort(want[::-1])])
+
+
+@pytest.mark.parametrize("name", ["ties_straddle_every_boundary",
+                                  "one_key_over_many_tiles",
+                                  "valid_prefix_ends_on_a_tile_boundary",
+                                  "all_sentinels"])
+def test_merge_dedup_edge_cases_match_jax_interpret(name):
+    """K6 plain version against merged_dedup_compact_pair (interpret mode)
+    on a subset of the edge shapes: n_out and the dense prefix."""
+    from zotpu.kernels.dedup_pallas import merged_dedup_compact_pair
+    _, keys, nA = _case(DEDUP_CASES, name)
+    hi, lo, jnA = _jax_pair(keys, nA, descending_b=True)
+    jh, jl, jc, jn = merged_dedup_compact_pair(hi, lo, nA=jnA, interpret=True)
+    jk, jcnt = _from_jax(jh, jl, jc)
+    got = MD.merge_dedup_pair(torch.from_numpy(keys), nA)
+    n = int(np.asarray(jn))
+    assert int(got[2]) == n
+    assert torch.equal(got[0][:n], jk[:n]) and torch.equal(got[1][:n], jcnt[:n])
 
 
 def _jax_rowsum(panel_u64, probes_u64, tags, n_rows):

@@ -46,7 +46,8 @@ _SIGNATURES = {
     "zt_join_row_hits": (_I32, [_P, _I64, _P, _I64, _I32, _P, _P, _P]),
     "zt_join_row_hits_tagged": (_I32, [_P, _I64, _P, _P, _I64, _I64, _P,
                                        _P, _P]),
-    "zt_merge_runs": (_I32, [_P, _P, _I64, _I64, _I64, _P, _P, _P]),
+    "zt_merge_runs_scratch_elems": (_I64, [_I64, _I64]),
+    "zt_merge_runs": (_I32, [_P, _P, _I64, _I64, _I64, _P, _P, _P, _P]),
     "zt_merge_dedup_scratch_elems": (_I64, [_I64]),
     "zt_merge_dedup": (_I32, [_P, _I64, _I64, _P, _P, _P, _P, _P]),
 }

@@ -71,15 +71,39 @@ inline cudaError_t persistent_grid(long long tiles, int blocks_per_sm,
   return cudaSuccess;
 }
 
-// K2's pipeline (dedup.cu) on n >= 1 sorted keys with an INT64_MAX tail:
-// dense unique keys and segment counts in [0, *n_unique), and *n_unique;
-// K6 (merge_runs.cu) runs it over its merged output. scratch holds
-// dedup_scratch_elems(n).
-long long dedup_scratch_elems(long long n);
-cudaError_t launch_dedup_compact(const long long* keys, long long n,
-                                 long long* ukeys, long long* counts,
-                                 long long* n_unique, long long* scratch,
-                                 cudaStream_t stream);
+// Number of A elements among the first d of merge(A[:na], B[:nb]), A first
+// on ties: the largest a with A[a-1] <= B[d-a]. The merge kernels (merge.cu,
+// merge_runs.cu) cut their tiles with it in device memory and their
+// threads' items with it in shared memory.
+template <typename Int>
+__device__ __forceinline__ Int merge_path(const long long* A, Int na,
+                                          const long long* B, Int nb, Int d) {
+  Int lo = d - nb > 0 ? d - nb : 0;
+  Int hi = d < na ? d : na;
+  while (lo < hi) {
+    const Int mid = (lo + hi) >> 1;
+    if (A[mid] <= B[d - 1 - mid]) lo = mid + 1;
+    else hi = mid;
+  }
+  return lo;
+}
+
+// The closing step of the dedup-compact kernels (K2 in dedup.cu, K6 in
+// merge_runs.cu), defined in dedup.cu. Their main kernels write
+// count[j] = start[j + 1] - start[j] inside a tile of tile_elems elements
+// and leave, per tile, first_pos (the position of its first segment start,
+// or NO_FIRST) and last_pos (of its last), with the inclusive count of
+// starts in the tile's status word. One thread per tile then writes the
+// count of the tile's last segment, which ends at the next tile's first
+// start or at the number of valid keys: *n_valid1 - 1, or n where
+// *n_valid1 is 0.
+constexpr long long NO_FIRST = -1;
+cudaError_t launch_dedup_close(long long n, long long tiles,
+                               long long tile_elems, const u64* status,
+                               const long long* first_pos,
+                               const long long* last_pos,
+                               const long long* n_valid1, long long* counts,
+                               cudaStream_t stream);
 
 }  // namespace zt
 

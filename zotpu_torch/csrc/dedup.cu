@@ -33,6 +33,7 @@
 
 namespace {
 
+using zt::NO_FIRST;
 using zt::SENT;
 using zt::u64;
 
@@ -43,7 +44,6 @@ constexpr int K2_WARPS = K2_THREADS / 32;
 constexpr int K2_ROWS = 16;
 constexpr int K2_TILE = K2_THREADS * K2_ROWS;
 constexpr int K2_BLOCKS_PER_SM = 4;
-constexpr long long NO_FIRST = -1;
 
 inline long long k2_tiles(long long n) { return (n + K2_TILE - 1) / K2_TILE; }
 
@@ -171,29 +171,31 @@ dedup_kernel(const long long* __restrict__ keys, long long n, long long tiles,
 // last valid key. (A run of equal keys over many tiles makes this search
 // long; k-mer runs are short.)
 __global__ void dedup_close_kernel(long long n, long long tiles,
-                                   long long* scratch, long long* counts) {
+                                   long long tile_elems, const u64* status,
+                                   const long long* first_pos,
+                                   const long long* last_pos,
+                                   const long long* n_valid1,
+                                   long long* counts) {
   const long long t =
       static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
   if (t >= tiles) return;
-  const Scratch sc(scratch, tiles);
-  if (sc.first_pos[t] == NO_FIRST) return;
-  long long end = *sc.n_valid1 ? *sc.n_valid1 - 1 : n;
-  for (long long u = t + 1; u * K2_TILE < end; ++u) {
-    if (sc.first_pos[u] != NO_FIRST) {
-      end = sc.first_pos[u];
+  if (first_pos[t] == NO_FIRST) return;
+  long long end = *n_valid1 ? *n_valid1 - 1 : n;
+  for (long long u = t + 1; u * tile_elems < end; ++u) {
+    if (first_pos[u] != NO_FIRST) {
+      end = first_pos[u];
       break;
     }
   }
-  const long long j = static_cast<long long>(sc.status[t] & zt::ST_VALUE) - 1;
-  counts[j] = end - sc.last_pos[t];
+  const long long j = static_cast<long long>(status[t] & zt::ST_VALUE) - 1;
+  counts[j] = end - last_pos[t];
 }
-
-}  // namespace
-
-namespace zt {
 
 long long dedup_scratch_elems(long long n) { return 3 * k2_tiles(n) + 2; }
 
+// K2's pipeline on n >= 1 sorted keys with an INT64_MAX tail: dense unique
+// keys and segment counts in [0, *n_unique), and *n_unique. scratch holds
+// dedup_scratch_elems(n).
 cudaError_t launch_dedup_compact(const long long* keys, long long n,
                                  long long* ukeys, long long* counts,
                                  long long* n_unique, long long* scratch,
@@ -204,21 +206,33 @@ cudaError_t launch_dedup_compact(const long long* keys, long long n,
       scratch, 0, sizeof(long long) * dedup_scratch_elems(n), stream);
   if (err != cudaSuccess) return err;
   unsigned grid = 0;
-  err = persistent_grid(tiles, K2_BLOCKS_PER_SM, &grid);
+  err = zt::persistent_grid(tiles, K2_BLOCKS_PER_SM, &grid);
   if (err != cudaSuccess) return err;
   dedup_kernel<<<grid, K2_THREADS, 0, stream>>>(keys, n, tiles, scratch, ukeys,
                                                 counts, n_unique);
   ZT_CHECK_LAUNCH();
+  const Scratch sc(scratch, tiles);
+  return zt::launch_dedup_close(n, tiles, K2_TILE, sc.status, sc.first_pos,
+                                sc.last_pos, sc.n_valid1, counts, stream);
+}
+
+}  // namespace
+
+cudaError_t zt::launch_dedup_close(long long n, long long tiles,
+                                   long long tile_elems, const u64* status,
+                                   const long long* first_pos,
+                                   const long long* last_pos,
+                                   const long long* n_valid1,
+                                   long long* counts, cudaStream_t stream) {
   dedup_close_kernel<<<static_cast<unsigned>((tiles + 255) / 256), 256, 0,
-                       stream>>>(n, tiles, scratch, counts);
+                       stream>>>(n, tiles, tile_elems, status, first_pos,
+                                 last_pos, n_valid1, counts);
   return cudaGetLastError();
 }
 
-}  // namespace zt
-
 // int64 scratch elements zt_dedup_compact needs for n keys.
 extern "C" long long zt_dedup_scratch_elems(long long n) {
-  return zt::dedup_scratch_elems(n);
+  return dedup_scratch_elems(n);
 }
 
 // keys: n >= 1 sorted int64 -> ukeys/counts (n each; written in
@@ -226,7 +240,7 @@ extern "C" long long zt_dedup_scratch_elems(long long n) {
 extern "C" int zt_dedup_compact(const void* keys_v, long long n, void* ukeys_v,
                                 void* counts_v, void* n_unique_v,
                                 void* scratch_v, void* stream_v) {
-  return static_cast<int>(zt::launch_dedup_compact(
+  return static_cast<int>(launch_dedup_compact(
       static_cast<const long long*>(keys_v), n,
       static_cast<long long*>(ukeys_v), static_cast<long long*>(counts_v),
       static_cast<long long*>(n_unique_v), static_cast<long long*>(scratch_v),

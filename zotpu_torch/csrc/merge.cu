@@ -54,6 +54,7 @@ namespace {
 
 using zt::COUNT_MAX;
 using zt::SENT;
+using zt::merge_path;
 
 enum { OP_MERGE = 0, OP_INTERSECT = 1, OP_DIFF = 2 };
 
@@ -71,21 +72,6 @@ __device__ __forceinline__ long long valid_len(const long long* p,
   if (p == nullptr) return cap;
   const long long v = *p;
   return v < 0 ? 0 : (v > cap ? cap : v);
-}
-
-// Number of A elements among the first d of merge(A[:na], B[:nb]), A first
-// on ties: the largest a with A[a-1] <= B[d-a].
-template <typename Int>
-__device__ __forceinline__ Int merge_path(const long long* A, Int na,
-                                          const long long* B, Int nb, Int d) {
-  Int lo = d - nb > 0 ? d - nb : 0;
-  Int hi = d < na ? d : na;
-  while (lo < hi) {
-    const Int mid = (lo + hi) >> 1;
-    if (A[mid] <= B[d - 1 - mid]) lo = mid + 1;
-    else hi = mid;
-  }
-  return lo;
 }
 
 __device__ __forceinline__ long long sat_add(long long a, long long b) {

@@ -7,15 +7,19 @@ the last level of the sharded kmerize receive tree
 routed keys, ascending runs A = [:nA] and B = [nA:] with duplicates on
 both sides and INT64_MAX pads; an equal-key segment may be any length.
 The output is dense: the unique keys up front with int64 occurrence counts
-in ``[:n_out]`` (a 0-d int64 device tensor); as with K2, whose pipeline
-writes it, the slots at or past ``n_out`` are unspecified on a CUDA tensor
-and INT64_MAX / 0 from the plain version. Its capacity is the input
+in ``[:n_out]`` (a 0-d int64 device tensor); as with K2, the slots at or
+past ``n_out`` are unspecified on a CUDA tensor and INT64_MAX / 0 from
+the plain version. Its capacity is the input
 length: the TPU's append slack (``dedup_out_cap``) is not kept. ``nB = 0``
 is a single-run dedup.
 
-The CUDA kernel (csrc/merge_runs.cu) merges into scratch and runs K2's
-device pipeline over it in the same entry point. On a CPU tensor the
-wrapper runs the plain version: a stable sort, then K2's plain version.
+The CUDA kernel (csrc/merge_runs.cu) is one pass: it merges tiles of the
+valid elements in registers, marks the segment starts, and writes the
+unique keys and counts dense, so the merged array never reaches device
+memory and the sentinel capacity is not read; K2's closing kernel then
+ends each tile's last segment. The scratch is a few words per tile. On a
+CPU tensor the wrapper runs the plain version: a stable sort, then K2's
+plain version.
 """
 
 from __future__ import annotations

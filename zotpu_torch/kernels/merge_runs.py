@@ -5,7 +5,9 @@ Port of the Pallas kernels ``sort_pallas.tree_merge_pass_alt`` /
 ``tree_merge_pair_alt`` (K5, the sharded kmerize receive tree) and
 ``sort_pallas.stream_merge_pass_pallas`` / ``stream_merge_pair_pallas``
 (K7, the sharded pulldown's row-id payload tree), behind one CUDA kernel
-(csrc/merge_runs.cu). Every run is ascending: the TPU's alternating
+(csrc/merge_runs.cu: a partition kernel for the tile boundaries of every
+pair, then tiles of 2,048 elements merged 8 items a thread in registers).
+Every run is ascending: the TPU's alternating
 direction (odd runs stored descending, ``_route(reverse_odd=True)``)
 served its bitonic network and is not kept. Capacities need not be
 multiples of a tile.
@@ -81,10 +83,14 @@ def _merge(keys, pay, pair_len: int, a_len: int):
     out_p = None if pay is None else torch.empty_like(pay)
     if n == 0:
         return out_k, out_p
+    scratch = torch.empty(
+        _build.lib().zt_merge_runs_scratch_elems(n, pair_len),
+        dtype=torch.int64, device=keys.device)
     _build.launch(keys.device, "zt_merge_runs", keys.data_ptr(),
                   None if pay is None else pay.data_ptr(), n, pair_len,
                   a_len, out_k.data_ptr(),
-                  None if out_p is None else out_p.data_ptr())
+                  None if out_p is None else out_p.data_ptr(),
+                  scratch.data_ptr())
     (KEYS_ONLY if pay is None else WITH_PAYLOAD).launches += 1
     return out_k, out_p
 
