@@ -54,7 +54,34 @@ Phases (any failure exits non-zero; no exception is caught):
    equal;
 8. sharded scan (``pulldown_paths_sharded``) of the 16 samples over 4
    slots, equal per sample and per read to the single-device
-   ``pulldown_paths``; K7 and K4's tagged entry must run.
+   ``pulldown_paths``; K7 and K4's tagged entry must run;
+9. merge (BASELINE config 2): each of the 16 samples kmerized by the CLI,
+   then ``python -m zotpu_torch merge`` of the 16 containers, which must
+   equal phase 3's container of the whole run (``verify``); K3 must run;
+10. set algebra and jaccard (config 3) on two sample-sized sets, the merge
+   of samples 0-7 and of samples 8-15: the CLI's ``union``, ``intersect``,
+   ``diff`` and ``jaccard`` (a pair, and the matrix of the two sets and
+   phase 9's merge) on one device against an oracle on the card
+   that uses no kernel of the port (``torch.isin`` for membership,
+   ``torch.unique`` + ``index_add_`` for the summed counts); then
+   ``set_op_sharded``, ``jaccard_sharded`` and ``set_op_sharded_stream``
+   over 4 slots on this card, each equal to the single-device result (the
+   CLI's ``--shards N`` asks for N cards, so the slots are placed through
+   ``devices=`` as in phases 7 and 8), and the CLI's ``--stream`` on the
+   card's one slot; and K3 against its plain version at
+   the JAX package's set-op bench size, 2^24 random keys a side
+   (zotpu/bench/harness.py ``bench_setops``), for each op, with the
+   bytes that op must move (``setop_bytes``);
+11. spill/resume: ``kmerize --spill-dir`` of four samples, uninterrupted,
+   then interrupted after two batches and resumed with ``--resume``: the
+   two directories hold the same files, and both results equal the
+   accumulator run of the same inputs; the final merge is the K3 merge
+   tree (the runs hold more than ``DEVICE_MERGE_THRESHOLD`` keys); then one
+   sharded spill run over 4 slots;
+12. spectrum (config 4): ``hist --cutoff`` and ``filter --auto`` on phase
+   3's container; the histogram must equal ``golden.spectrum``, the
+   coverage peak must sit within 15% of 30 x 126 / 150 and the genome-size
+   estimate within 15% of the genome's length.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's launches, error, times and bound.
@@ -116,6 +143,9 @@ HBM_BYTES_PER_S = 3.35e12      # H100 SXM, published (the bound's rate)
 COPY_RATE = {}                 # "bytes_per_s": measured in phase 2
 SPIN_CYCLES = 3_500_000        # about 2 ms of the card's clock
 SHARD_CF = 4.0                 # kmerize_paths_sharded's capacity factor
+SETOP_BENCH_N = 1 << 24        # keys a side (harness.py bench_setops)
+SPILL_SAMPLES = 4              # samples of the spill/resume phase
+SET_OPS = ("union", "intersect", "diff")
 
 
 def check(cond, what):
@@ -181,6 +211,20 @@ def compare(torch, name, got, want, defined=None) -> float:
                       [w for w in want if w is not None])
     check(err == 0, f"{name} differs from its plain version")
     return err
+
+
+def setop_bytes(op, n_a, n_b, n_out):
+    """The bytes a set op must move on int64 keys and counts: merge and
+    union need both sides' keys and counts; diff needs no count of B;
+    intersect needs the keys, and the counts of the matched pairs only.
+    The output is n_out keys and counts, and the three scalars 8 B each."""
+    if op == "diff":
+        nbytes = n_a * 16 + n_b * 8
+    elif op == "intersect":
+        nbytes = (n_a + n_b) * 8 + 2 * n_out * 8
+    else:
+        nbytes = (n_a + n_b) * 16
+    return nbytes + n_out * 16 + 24
 
 
 def measure(torch, name, kernel, plain, nbytes, defined=None, library=None):
@@ -410,13 +454,13 @@ def phase_kernels(torch, dev, rng, genome, panel):
     (ka, ca, na), (kb, cb, nb) = runs
     say(f"  set_op_fused inputs: n_a={int(na)} n_b={int(nb)} of "
         f"{ka.shape[0]} each")
-    n_in = int(na) + int(nb)
     for op in ("merge", "union", "intersect", "diff"):
         n_op = int(M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb)[2])
         r = measure(torch, f"set_op_fused op={op} (K3)",
                     lambda: M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
                     lambda: M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb),
-                    (n_in + n_op) * 16 + 24, defined=dense_prefix)
+                    setop_bytes(op, int(na), int(nb), n_op),
+                    defined=dense_prefix)
         if op == "merge":
             rows["set_op_fused"] = r
     # without the valid counts the whole sentinel-tailed arrays merge and
@@ -730,6 +774,382 @@ def phase_sharded_scan(torch, fx, panel):
             {"wall_s": wall, "bases_per_s": bases / wall,
              "profiled_wall_s": pwall,
              "device_busy_ms": None if busy_us is None else busy_us / 1e3})
+
+
+def same_files(dir_a, dir_b):
+    """The sorted .zkf names of dir_a, after checking that dir_b holds the
+    same names with the same bytes."""
+    names = sorted(n for n in os.listdir(dir_a) if n.endswith(".zkf"))
+    check(names == sorted(n for n in os.listdir(dir_b) if n.endswith(".zkf")),
+          f"{dir_a} and {dir_b} hold the same run files")
+    for n in names:
+        with open(os.path.join(dir_a, n), "rb") as f, \
+                open(os.path.join(dir_b, n), "rb") as g:
+            check(f.read() == g.read(), f"run file {n} is the same in both")
+    return names
+
+
+def verify_equal(a, b, what):
+    got = json.loads(run_cli(["verify", a, b])[-1])
+    check(got.get("equal") is True, f"{what}: verify says {got}")
+    return got["n"]
+
+
+def phase_merge(torch, fx, tmp):
+    """Phase 9 (BASELINE config 2): kmerize every sample, merge the 16
+    containers through the CLI, verify against the whole run's container.
+    Returns the samples' containers and the merge's numbers."""
+    from zotpu_torch import kernels
+    from zotpu_torch.io import container
+
+    t0 = time.perf_counter()
+    sets = []
+    for i, sample in enumerate(fx["samples"]):
+        sets.append(os.path.join(tmp, f"s{i}.zkf"))
+        run_cli(["kmerize", "-k", K, "--batch-reads", BATCH_READS,
+                 "--max-len", MAX_LEN, sets[-1], sample])
+    keys_in = sum(container.read_header(p)["n"] for p in sets)
+    say(f"phase 9: merge of {N_SAMPLES} sample sets ({keys_in} keys in all; "
+        f"kmerized in {time.perf_counter() - t0:.1f} s)")
+    merged = os.path.join(tmp, "merged.zkf")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    line = json.loads(run_cli(["merge", merged, *sets])[-1])
+    wall = time.perf_counter() - t0
+    run = kernels.launches()
+    n = verify_equal(merged, os.path.join(tmp, "ecoli30x.zkf"),
+                     "the merge of the samples equals the whole run")
+    check(line == {"command": "merge", "inputs": N_SAMPLES, "unique": n},
+          f"the merge line {line}")
+    check(run["set_op_fused"] > 0, "K3 launched on the merge path")
+    say(f"  merge (CLI, cuda): wall {wall:.3f} s, {keys_in / wall:.6e} keys/s "
+        f"in, {n} unique out; verify: equal to phase 3's container; "
+        f"launches {json.dumps(run)}; {card_line()}")
+    pwall, busy_us = profiled(torch, lambda: run_cli(["merge", merged,
+                                                      *sets]))
+    # the host side alone: reading every input in the merge's chunks, and
+    # writing the result's container
+    t0 = time.perf_counter()
+    for path in sets:
+        for _ in container.ChunkReader(path).chunks(1 << 22):
+            pass
+    read_s = time.perf_counter() - t0
+    result = container.read(merged)
+    t0 = time.perf_counter()
+    container.write(merged, result)
+    write_s = time.perf_counter() - t0
+    say(f"  host side alone: reading the {N_SAMPLES} inputs in chunks "
+        f"{read_s:.3f} s, writing the result ({n} keys) {write_s:.3f} s")
+    return sets, {"wall_s": wall, "keys_in": keys_in,
+                  "keys_per_s": keys_in / wall, "unique": n,
+                  "set_op_fused": run["set_op_fused"],
+                  "host_read_s": read_s, "host_write_s": write_s,
+                  "profiled_wall_s": pwall,
+                  "device_busy_ms": None if busy_us is None else busy_us / 1e3}
+
+
+def phase_setops(torch, dev, sets, tmp):
+    """Phase 10 (config 3): union, intersect, diff and jaccard of two
+    sample-sized sets through the CLI against an oracle on the card, then
+    the sharded and the streamed forms over SHARDS slots against the
+    single-device results. Returns K3's launches per op and the numbers."""
+    from zotpu_torch import kernels
+    from zotpu_torch.io import container
+    from zotpu_torch.keys import COUNT_MAX
+    from zotpu_torch.workloads import setops as WS
+
+    pa, pb = os.path.join(tmp, "A.zkf"), os.path.join(tmp, "B.zkf")
+    half = N_SAMPLES // 2
+    kernels.reset_launches()
+    run_cli(["merge", pa, *sets[:half]])
+    run_cli(["merge", pb, *sets[half:]])
+    launches = {"merge": kernels.launches()["set_op_fused"]}
+    t0 = time.perf_counter()
+    A, B = container.read(pa), container.read(pb)
+    read_s = time.perf_counter() - t0
+    say(f"phase 10: set ops on A = samples 0-{half - 1} ({A.n} keys) and "
+        f"B = samples {half}-{N_SAMPLES - 1} ({B.n} keys), k={K}; reading "
+        f"both containers takes {read_s:.3f} s")
+
+    # the oracle, on the card, with no kernel of the port
+    t0 = time.perf_counter()
+    ka, kb = (torch.from_numpy(x.keys.astype(np.int64)).to(dev)
+              for x in (A, B))
+    ca, cb = (torch.from_numpy(x.counts.astype(np.int64)).to(dev)
+              for x in (A, B))
+    uk, inv = torch.unique(torch.cat([ka, kb]), return_inverse=True)
+    uc = torch.zeros_like(uk).index_add_(0, inv, torch.cat([ca, cb]))
+    uc = uc.clamp(max=COUNT_MAX)
+    both = torch.isin(uk, ka) & torch.isin(uk, kb)
+    only_a = ~torch.isin(ka, kb)
+    oracle = {op: (k.cpu().numpy().astype(np.uint64),
+                   c.cpu().numpy().astype(np.uint32))
+              for op, (k, c) in (("union", (uk, uc)),
+                                 ("intersect", (uk[both], uc[both])),
+                                 ("diff", (ka[only_a], ca[only_a])))}
+    n_int, n_uni = int(both.sum()), uk.shape[0]
+    del ka, kb, ca, cb, uk, inv, uc, both, only_a
+    say(f"  oracle (torch.unique + index_add_, torch.isin): union "
+        f"{n_uni}, intersect {n_int}, diff {len(oracle['diff'][0])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    want_cards = {"a": A.n, "b": B.n, "intersect": n_int, "union": n_uni,
+                  "jaccard": n_int / n_uni}
+
+    def same(got, want, what):
+        check(np.array_equal(got[0], want[0])
+              and np.array_equal(got[1], want[1]), what)
+
+    slots = [dev] * SHARDS
+    a, b = (A.keys, A.counts), (B.keys, B.counts)
+    cache, walls = {}, {}
+    for op in SET_OPS:
+        out = os.path.join(tmp, f"{op}.zkf")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        line = json.loads(run_cli([op, out, pa, pb])[-1])
+        walls[op] = time.perf_counter() - t0
+        n_one = kernels.launches()["set_op_fused"]
+        got = container.read(out)
+        os.remove(out)
+        single = (got.keys, got.counts)
+        same(single, oracle[op], f"{op} (CLI) equals the oracle")
+        check(line == {"command": op, "unique": len(single[0])}
+              and n_one == 1, f"{op}: one K3 launch, line {line}")
+        t0 = time.perf_counter()
+        keys, counts, cards = WS.set_op_sharded(a, b, op, K, SHARDS,
+                                                devices=slots, cache=cache)
+        w_sh = time.perf_counter() - t0
+        n_sh = kernels.launches()["set_op_fused"] - n_one
+        same((keys, counts), single, f"{op} over {SHARDS} slots equals the "
+             f"single-device result")
+        check(cards == want_cards, f"{op}: sharded cardinalities {cards}")
+        t0 = time.perf_counter()
+        k, keys, counts, cards = WS.set_op_sharded_stream(
+            pa, pb, op, SHARDS, devices=slots)
+        w_st = time.perf_counter() - t0
+        same((keys, counts), single, f"{op} streamed equals the "
+             f"single-device result")
+        check(k == K and cards == want_cards,
+              f"{op}: streamed cardinalities {cards}")
+        # and the CLI's --stream on this card's one slot
+        line = json.loads(run_cli([op, "--stream", out, pa, pb])[-1])
+        got = container.read(out)
+        os.remove(out)
+        same((got.keys, got.counts), single, f"{op} --stream (CLI) equals "
+             f"the single-device result")
+        check(line == {"command": op, "unique": len(single[0]),
+                       "cards": want_cards}, f"{op} --stream line {line}")
+        launches[op] = kernels.launches()["set_op_fused"]
+        check(n_sh == SHARDS and launches[op] == 2 + 2 * SHARDS,
+              f"{op}: a K3 launch a slot ({launches[op]} in all)")
+        keys_in = A.n + B.n
+        say(f"  {op}: CLI wall {walls[op]:.3f} s ({keys_in / walls[op]:.6e} "
+            f"keys/s in, {len(single[0])} out), {SHARDS} slots "
+            f"{w_sh:.3f} s, streamed {w_st:.3f} s: equal to the oracle and "
+            f"to each other; K3 launches {launches[op]}")
+        del got, single, keys, counts
+    check(len(cache) == 2, "the partition cache holds each set once")
+
+    kernels.reset_launches()
+    line = json.loads(run_cli(["jaccard", pa, pb])[-1])
+    check(line == {"command": "jaccard", **want_cards},
+          f"jaccard (CLI) {line} equals the oracle's {want_cards}")
+    # the matrix form: A, B and phase 9's merge of all samples, which is
+    # their union, so every pair's cardinalities are known from the oracle
+    pm = os.path.join(tmp, "merged.zkf")
+    lines = [json.loads(x) for x in run_cli(["jaccard", pa, pb, pm])]
+    want = [{"command": "jaccard", "a": p, "b": q, "intersect": ni,
+             "union": n_uni, "jaccard": ni / n_uni}
+            for p, q, ni in ((pa, pb, n_int), (pa, pm, A.n), (pb, pm, B.n))]
+    check(lines == want, f"jaccard matrix (CLI, 3 inputs) {lines}")
+    t0 = time.perf_counter()
+    cards = WS.jaccard_sharded(A.keys, B.keys, K, SHARDS, devices=slots)
+    w_j = time.perf_counter() - t0
+    launches["jaccard"] = kernels.launches()["set_op_fused"]
+    check(cards == want_cards and launches["jaccard"] == 1 + 3 + SHARDS,
+          f"jaccard over {SHARDS} slots {cards}, a K3 launch a pair and a "
+          f"slot ({launches['jaccard']} in all)")
+    say(f"  jaccard {want_cards['jaccard']:.6f}: CLI (a pair, and the "
+        f"matrix of 3 inputs) and {SHARDS} slots "
+        f"({w_j * 1e3:.1f} ms, only the counts leave the card) equal the "
+        f"oracle; K3 launches {launches['jaccard']}")
+    pwall, busy_us = profiled(torch, lambda: run_cli(
+        ["union", os.path.join(tmp, "union.zkf"), pa, pb]))
+    os.remove(os.path.join(tmp, "union.zkf"))
+    return launches, {"a": A.n, "b": B.n, "wall_s": walls,
+                      "host_read_s": read_s,
+                      "union_profiled_wall_s": pwall,
+                      "union_device_busy_ms": (None if busy_us is None
+                                               else busy_us / 1e3)}
+
+
+def phase_setop_bench(torch, dev, seed):
+    """Phase 10's kernel rows: K3 against its plain version at the JAX
+    package's set-op bench size, SETOP_BENCH_N random keys below 2^50 a
+    side with counts of one (zotpu/bench/harness.py bench_setops; two such
+    sets share next to no key), for each op. Returns a row per op."""
+    from zotpu_torch.kernels import merge_fused as M
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sides = []
+    for _ in range(2):
+        k = torch.unique(torch.randint(0, 1 << 50, (SETOP_BENCH_N,),
+                                       generator=gen, device=dev,
+                                       dtype=torch.int64))
+        sides.append((k, torch.ones_like(k),
+                      torch.tensor(k.shape[0], device=dev)))
+    (ka, ca, na), (kb, cb, nb) = sides
+    n_in = int(na) + int(nb)
+    say(f"  K3 at the set-op bench size: {int(na)} + {int(nb)} keys")
+    rows = {}
+    for op in ("merge", *SET_OPS):
+        n_op = int(M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb)[2])
+        nbytes = setop_bytes(op, int(na), int(nb), n_op)
+        r = measure(torch, f"set_op_fused op={op}, 2^24 keys a side (K3)",
+                    lambda: M.set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                    lambda: M.set_op_plain(ka, ca, kb, cb, op, n_a=na, n_b=nb),
+                    nbytes, defined=dense_prefix)
+        # BASELINE's second metric: by the contract bytes (what this op
+        # must read and write), and by the JAX bench's formula (the two
+        # inputs at 12 B a key, harness.py:189)
+        say(f"    set-op {op}: {nbytes / r['ms'] / 1e6:.1f} GB/s by the "
+            f"contract bytes, {n_in * 12 / r['ms'] / 1e6:.1f} GB/s by the "
+            f"bench formula (inputs at 12 B a key), "
+            f"{n_in / r['ms'] / 1e6:.3f} Gkeys/s, n_out {n_op}")
+        rows[op] = {**r, "contract_bytes": nbytes, "n_in": n_in,
+                    "n_out": n_op,
+                    "contract_gb_per_s": nbytes / r["ms"] / 1e6}
+    return rows
+
+
+def phase_spill(torch, dev, fx, tmp):
+    """Phase 11: kmerize --spill-dir of SPILL_SAMPLES samples, whole, then
+    crashed after two batches and resumed; then a sharded spill run.
+    Returns the launches of the uninterrupted spill run."""
+    from zotpu_torch import kernels
+    from zotpu_torch.io import container
+    from zotpu_torch.workloads import kmerize as W
+
+    inputs = fx["samples"][:SPILL_SAMPLES]
+    flags = ["-k", K, "--batch-reads", BATCH_READS, "--max-len", MAX_LEN]
+    dirs = [os.path.join(tmp, f"spill{i}") for i in range(3)]
+    for d in dirs:
+        os.mkdir(d)
+    acc, clean, resumed = (os.path.join(tmp, f"spill_{n}.zkf")
+                           for n in ("acc", "clean", "resumed"))
+    run_cli(["kmerize", *flags, acc, *inputs])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    stats = json.loads(run_cli(["kmerize", *flags, "--spill-dir", dirs[0],
+                                clean, *inputs])[-1])
+    wall = time.perf_counter() - t0
+    run = kernels.launches()
+    b = stats["batches"]
+    say(f"phase 11: kmerize --spill-dir of {SPILL_SAMPLES} samples: "
+        f"{json.dumps(stats)}")
+    names = sorted(os.listdir(dirs[0]))
+    run_keys = sum(container.read_header(os.path.join(dirs[0], f))["n"]
+                   for f in names)
+    check(b >= 3 and len(names) == b, "several batches, a run file each")
+    check(run["pack_canonical_wire"] == b and run["dedup_compact"] == b,
+          "K1a and K2 ran once per batch in spill mode")
+    check(run_keys >= W.DEVICE_MERGE_THRESHOLD
+          and run["set_op_fused"] == b - 1,
+          "the final merge is the K3 merge tree (runs - 1 launches)")
+    try:
+        W.kmerize_paths(inputs, K, batch_reads=BATCH_READS, max_len=MAX_LEN,
+                        spill_dir=dirs[1], fail_after_batches=2, device=dev)
+    except W.Interrupted as e:
+        say(f"  interrupted: {e}")
+    else:
+        check(False, "fail_after_batches interrupts the run")
+    check(sorted(os.listdir(dirs[1])) == ["run000001.zkf", "run000002.zkf"],
+          "exactly two run files exist after the crash")
+    kernels.reset_launches()
+    rstats = json.loads(run_cli(["kmerize", *flags, "--spill-dir", dirs[1],
+                                 "--resume", resumed, *inputs])[-1])
+    rerun = kernels.launches()
+    check(rerun["pack_canonical_wire"] == b - 2,
+          "the resumed run recomputed only the missing batches")
+    check(rerun["set_op_fused"] == b - 1, "the resumed run merged on K3")
+    check(rstats == stats, f"the resumed run's stats {rstats}")
+    check(same_files(dirs[0], dirs[1]) == names, "the same run files")
+    n = verify_equal(resumed, clean, "resumed equals uninterrupted")
+    verify_equal(resumed, acc, "spill mode equals the accumulator path")
+    say(f"  wall {wall:.3f} s, {b} run files holding {run_keys} keys, "
+        f"{n} unique; crash after 2 batches, --resume: the same run files, "
+        f"and the result equals the uninterrupted spill run and the "
+        f"accumulator path; launches {json.dumps(run)}, resumed "
+        f"{json.dumps(rerun)}")
+    want = container.read(acc)
+    kernels.reset_launches()
+    sstats = W.Stats()
+    t0 = time.perf_counter()
+    keys, cnts = W.kmerize_paths_sharded(
+        inputs, K, SHARDS, batch_reads=BATCH_READS, max_len=MAX_LEN,
+        stats=sstats, capacity_factor=SHARD_CF, spill_dir=dirs[2],
+        devices=[dev] * SHARDS)
+    swall = time.perf_counter() - t0
+    srun = kernels.launches()
+    check(np.array_equal(keys, want.keys)
+          and np.array_equal(cnts, want.counts),
+          "the sharded spill run equals the accumulator path")
+    check(srun["merge_runs"] > 0 and srun["merge_dedup"] > 0
+          and srun["set_op_fused"] == sstats.batches - 1,
+          "the sharded spill run ran K5, K6 and the K3 merge tree")
+    check(len(os.listdir(dirs[2])) == sstats.batches, "a run file a batch")
+    say(f"  sharded spill run ({SHARDS} slots): wall {swall:.3f} s, "
+        f"{sstats.batches} run files, routed_per_shard "
+        f"{sstats.routed_per_shard}: equal; launches {json.dumps(srun)}")
+    return run, {"wall_s": wall, "batches": b, "run_keys": run_keys,
+                 "sharded_wall_s": swall}
+
+
+def phase_spectrum(torch, tmp):
+    """Phase 12 (config 4): hist --cutoff and filter --auto on the whole
+    run's container, against golden.spectrum and the fixture's coverage
+    and genome size."""
+    from zotpu_torch.io import container
+    from zotpu_torch.reference_impl import golden as G
+
+    full = os.path.join(tmp, "ecoli30x.zkf")
+    t0 = time.perf_counter()
+    lines = run_cli(["hist", "--cutoff", full])
+    wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    counts = container.read(full).counts
+    read_s = time.perf_counter() - t0
+    want = G.spectrum(counts)
+    check(lines[:-1] == [f"{f}\t{int(want[f])}" for f in range(1, len(want))
+                         if want[f]], "the histogram equals golden.spectrum")
+    fit = json.loads(lines[-1])
+    peak_want = COVERAGE * (READ_LEN - K + 1) / READ_LEN
+    say(f"phase 12: hist --cutoff of {len(counts)} counts: wall {wall:.3f} "
+        f"s ({read_s:.3f} s of it reading the container, measured apart), "
+        f"equal to golden.spectrum; {json.dumps(fit)}")
+    say(f"  coverage peak {fit['coverage_peak']:.3f} (expected near "
+        f"{peak_want:.1f}), genome-size estimate "
+        f"{fit['genome_size_estimate']} (the genome has {GENOME_BP} bp)")
+    check(abs(fit["coverage_peak"] / peak_want - 1) <= 0.15,
+          "the coverage peak is within 15% of 30 x 126 / 150")
+    check(abs(fit["genome_size_estimate"] / GENOME_BP - 1) <= 0.15,
+          "the genome-size estimate is within 15% of the genome's length")
+    solid = os.path.join(tmp, "solid.zkf")
+    t0 = time.perf_counter()
+    line = json.loads(run_cli(["filter", "--auto", solid, full])[-1])
+    fwall = time.perf_counter() - t0
+    kept = int((counts >= line["min_count"]).sum())
+    check(line == {"command": "filter", "min_count": fit["cutoff"],
+                   "kept": kept, "of": len(counts)},
+          f"filter --auto: {line}")
+    check(container.read_header(solid)["n"] == kept, "the filtered set")
+    say(f"  filter --auto: wall {fwall:.3f} s, min_count "
+        f"{line['min_count']}, kept {kept} of {len(counts)}")
+    pwall, busy_us = profiled(torch, lambda: run_cli(["hist", full]))
+    return {"wall_s": wall, "host_read_s": read_s, "filter_wall_s": fwall,
+            **fit,
+            "profiled_wall_s": pwall,
+            "device_busy_ms": None if busy_us is None else busy_us / 1e3}
 
 
 def write_fixture(rng, genome, tmp):
@@ -1064,17 +1484,41 @@ def main() -> int:
         launches.update(phase_sharded_kmerize(torch, fx, tmp))
         sharded, sscan = phase_sharded_scan(torch, fx, panel)
         launches.update(sharded)
+        sets, merge = phase_merge(torch, fx, tmp)
+        op_launches, setops = phase_setops(torch, dev, sets, tmp)
+        for path in sets:
+            os.remove(path)
+        bench_rows = phase_setop_bench(torch, dev, args.seed)
+        spill_launches, spill = phase_spill(torch, dev, fx, tmp)
+        spectrum = phase_spectrum(torch, tmp)
+    op_launches["merge"] += merge["set_op_fused"]
+    by_path = {"kmerize": launches["set_op_fused"], **op_launches,
+               "spill": spill_launches["set_op_fused"]}
+    for path, n in by_path.items():
+        check(n > 0, f"K3 launched on the {path} path")
     say(f"e2e kmerize: {json.dumps(e2e)}")
     say(f"e2e scan: {json.dumps(scan)}")
     say(f"e2e sharded scan: {json.dumps(sscan)}")
+    say(f"e2e merge: {json.dumps(merge)}")
+    say(f"e2e set ops: {json.dumps(setops)}")
+    say(f"spill/resume: {json.dumps(spill)}")
+    say(f"spectrum: {json.dumps(spectrum)}")
+    say(f"K3 launches by path: {json.dumps(by_path)}")
     check(not any(m.split(".")[0] in ("jax", "zotpu") for m in sys.modules),
           "neither jax nor the JAX package zotpu was imported")
 
     say(card_line())
+    k3 = KERNEL_INFO["set_op_fused"]
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
-         **rows[name]} for name in KERNEL_INFO]}))
+         **rows[name]} for name in KERNEL_INFO] + [
+        # K3 again, at the set-op bench size: the launches are those of
+        # the op's own path (merge: phases 9 and 10; the others: phase 10)
+        {"name": f"set_op_fused op={op} at 2^24 keys a side",
+         "route": "cuda", "source": k3[0], "replaces": k3[1],
+         "launches": op_launches[op], **row}
+        for op, row in bench_rows.items()]}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

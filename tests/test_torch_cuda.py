@@ -1,12 +1,15 @@
 """zotpu_torch kernels on the card: each CUDA kernel against its plain
-PyTorch version on the same CUDA tensors, and the kmerize and scan CLIs on
-cuda against golden. These need a CUDA device and nvcc; elsewhere they skip.
+PyTorch version on the same CUDA tensors, and the kmerize, scan, merge,
+set-op, jaccard, spill/resume and spectrum paths on cuda against their CPU
+(plain-version) results and golden. These need a CUDA device and nvcc; elsewhere they skip.
 They import nothing of the JAX package, so they run on the card (which has
 no JAX, hence no conftest) with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
 
 K2, K6 and K3 with valid counts define their dense outputs up to n only
 (the slots past it are left unwritten), so those are compared over [:n]."""
+
+import json
 
 import numpy as np
 import pytest
@@ -451,3 +454,185 @@ def test_sharded_cli_on_distinct_cards(dev, tmp_path, capsys):
             assert np.array_equal(got[1], want_c), key
         else:
             assert got == outs["1", "prefix", "scan"], key
+
+
+# ----- set algebra, merge, jaccard, spill/resume and spectrum on the card
+
+
+def _random_set(rng, n, k=25):
+    keys = np.unique(rng.integers(0, 1 << (2 * k), n, dtype=np.uint64))
+    return keys, rng.integers(1, 300, len(keys)).astype(np.uint32)
+
+
+def _overlapping_sets(seed, na, nb):
+    rng = np.random.default_rng(seed)
+    a, b = _random_set(rng, na), _random_set(rng, nb)
+    keys = np.unique(np.concatenate([b[0], a[0][::3]]))
+    return a, (keys, rng.integers(1, 300, len(keys)).astype(np.uint32))
+
+
+_GOLD = {"merge": lambda a, b: G.merge([a, b]), "union": G.union,
+         "intersect": G.intersect, "diff": G.difference}
+
+
+@pytest.mark.parametrize("op", ["merge", "union", "intersect", "diff"])
+@pytest.mark.parametrize("na,nb", [(0, 0), (1, 0), (5000, 7), (200000,
+                                                                150000)])
+def test_set_op_workload_on_card_matches_plain_and_golden(dev, op, na, nb):
+    """workloads/setops.set_op on the card (one K3 launch) against the same
+    function on the CPU (K3's plain version) and golden."""
+    from zotpu_torch.workloads import setops as WS
+    a, b = _overlapping_sets(na + nb, na, nb)
+    before = TM.set_op_fused.launches
+    got = WS.set_op(a, b, op, device=dev)
+    assert TM.set_op_fused.launches == before + (na + nb > 0)
+    for want in (WS.set_op(a, b, op, device="cpu"), _GOLD[op](a, b)):
+        assert np.array_equal(got[0], want[0])
+        assert np.array_equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("n_runs", [2, 5, 8])
+def test_merge_tree_and_jaccard_on_card(dev, n_runs):
+    from zotpu_torch.workloads import setops as WS
+    rng = np.random.default_rng(n_runs)
+    base = _random_set(rng, 300000)[0]
+    runs = []
+    for _ in range(n_runs):
+        keys = np.sort(rng.choice(base, 60000, replace=False))
+        runs.append((keys, rng.integers(1, 1 << 32, len(keys),
+                                        dtype=np.uint64).astype(np.uint32)))
+    before = TM.set_op_fused.launches
+    got = WS.merge_tree_device(runs, device=dev)
+    assert TM.set_op_fused.launches == before + n_runs - 1
+    want = G.merge(runs)                    # some counts saturate
+    assert np.array_equal(got[0], want[0])
+    assert np.array_equal(got[1], want[1])
+    assert int(got[1].max()) == 0xFFFFFFFF
+    before = TM.set_op_fused.launches
+    cards = WS.jaccard(runs[0][0], runs[1][0], device=dev)
+    assert TM.set_op_fused.launches == before + 1
+    assert cards == WS.jaccard(runs[0][0], runs[1][0], device="cpu")
+    assert cards["intersect"] == len(np.intersect1d(runs[0][0], runs[1][0]))
+
+
+@pytest.mark.parametrize("op", ["union", "intersect", "diff"])
+@pytest.mark.parametrize("skew", [False, True])
+def test_sharded_set_ops_on_card_slots(dev, tmp_path, op, skew):
+    """set_op_sharded, jaccard_sharded and set_op_sharded_stream with 4
+    slots on one card against the single-device result; with skew every
+    key sits in the first slot and three slots get empty slices."""
+    from zotpu_torch.workloads import setops as WS
+    a, b = _overlapping_sets(int(skew), 120000, 90000)
+    if skew:
+        a, b = ((s[0] >> np.uint64(3), s[1]) for s in (a, b))
+    slots = [dev] * 4
+    want = WS.set_op(a, b, op, device=dev)
+    before = TM.set_op_fused.launches
+    keys, counts, cards = WS.set_op_sharded(a, b, op, 25, 4, devices=slots)
+    assert TM.set_op_fused.launches == before + (1 if skew else 4)
+    assert np.array_equal(keys, want[0]) and np.array_equal(counts, want[1])
+    assert cards == WS.set_op_sharded(a, b, op, 25, 4, device="cpu")[2]
+    cache = {}
+    for _ in range(2):
+        assert WS.jaccard_sharded(a[0], b[0], 25, 4, cache=cache,
+                                  devices=slots) == WS.jaccard(
+            a[0], b[0], device="cpu")
+    assert len(cache) == 2
+    pa, pb = str(tmp_path / "a.zkf"), str(tmp_path / "b.zkf")
+    container.write(pa, container.KmerSet(k=25, keys=a[0], counts=a[1]))
+    container.write(pb, container.KmerSet(k=25, keys=b[0], counts=b[1]))
+    k, keys, counts, scards = WS.set_op_sharded_stream(
+        pa, pb, op, 4, chunk=10007, devices=slots)
+    assert k == 25 and scards == cards
+    assert np.array_equal(keys, want[0]) and np.array_equal(counts, want[1])
+
+
+def test_set_algebra_cli_on_card(dev, tmp_path, capsys, monkeypatch):
+    """merge (through the accumulator, several chunks and levels), the set
+    ops (one device, --shards 4 is covered above through devices=), and
+    jaccard through the CLI on cuda against golden."""
+    from zotpu_torch import kernels
+    monkeypatch.setenv("ZOTPU_MERGE_CHUNK", "20000")
+    rng = np.random.default_rng(11)
+    sets = [_random_set(rng, 90000) for _ in range(2)]
+    sets.append((sets[0][0][::2].copy(), sets[1][1][:len(sets[0][0][::2])]))
+    paths = []
+    for i, (keys, counts) in enumerate(sets):
+        paths.append(str(tmp_path / f"s{i}.zkf"))
+        container.write(paths[-1], container.KmerSet(k=25, keys=keys,
+                                                     counts=counts))
+    kernels.reset_launches()
+    out = str(tmp_path / "m.zkf")
+    assert tcli.main(["merge", out, *paths]) == 0
+    assert kernels.launches()["set_op_fused"] >= 10
+    got, want = container.read(out), G.merge(sets)
+    assert np.array_equal(got.keys, want[0])
+    assert np.array_equal(got.counts, want[1])
+    for op, gold in (("union", G.union), ("intersect", G.intersect),
+                     ("diff", G.difference)):
+        out = str(tmp_path / f"{op}.zkf")
+        assert tcli.main([op, out, paths[0], paths[2]]) == 0
+        got, want = container.read(out), gold(sets[0], sets[2])
+        assert np.array_equal(got.keys, want[0])
+        assert np.array_equal(got.counts, want[1])
+    capsys.readouterr()
+    assert tcli.main(["jaccard", paths[0], paths[2]]) == 0
+    line = json.loads(capsys.readouterr().out)
+    assert line["intersect"] == len(sets[2][0]) and line["union"] == len(
+        sets[0][0])
+
+
+@pytest.mark.parametrize("shards", [1, 4])
+def test_spill_and_resume_on_card(dev, tmp_path, monkeypatch, shards):
+    """kmerize --spill-dir on the card, crashed and resumed, against the
+    accumulator run and golden; with the threshold lowered the final merge
+    is the K3 merge tree."""
+    from zotpu_torch.workloads import kmerize as TW
+    rng = np.random.default_rng(21)
+    genome = rng.choice(list("ACGT"), size=30000)
+    reads = ["".join(genome[o:o + 150]) for o in rng.integers(0, 29850, 3000)]
+    fq = tmp_path / "r.fastq"
+    fq.write_text("".join(f"@r{i}\n{r}\n+\n{'I' * len(r)}\n"
+                          for i, r in enumerate(reads)))
+    monkeypatch.setattr(TW, "DEVICE_MERGE_THRESHOLD", 1000)
+    common = dict(batch_reads=512, max_len=160)
+
+    def run(**kw):
+        if shards > 1:
+            return TW.kmerize_paths_sharded([str(fq)], 25, shards,
+                                            devices=[dev] * shards,
+                                            **common, **kw)
+        return TW.kmerize_paths([str(fq)], 25, device=dev, **common, **kw)
+
+    want = G.kmerize(25, reads)
+    spill = tmp_path / "spill"
+    spill.mkdir()
+    with pytest.raises(TW.Interrupted):
+        run(spill_dir=str(spill), fail_after_batches=2)
+    assert len(list(spill.glob("*.zkf"))) == 2
+    before = TM.set_op_fused.launches
+    got = run(spill_dir=str(spill), resume=True)
+    assert TM.set_op_fused.launches == before + len(
+        list(spill.glob("*.zkf"))) - 1
+    for out in (got, run()):
+        assert np.array_equal(out[0], want[0])
+        assert np.array_equal(out[1], want[1])
+
+
+@pytest.mark.parametrize("max_count", [1, 1024, 70000])
+def test_spectrum_on_card_matches_cpu_and_golden(dev, max_count):
+    from zotpu_torch.kernels import hist as TH
+    from zotpu_torch.workloads import spectrum as WSp
+    rng = np.random.default_rng(max_count)
+    counts = rng.poisson(25, 500000).astype(np.uint32)
+    counts[::9] = rng.integers(0, 200000, len(counts[::9]))
+    c = torch.from_numpy(counts.astype(np.int64))
+    got = TH.spectrum(c.to(dev), max_count=max_count)
+    assert got.dtype == torch.int32
+    assert torch.equal(got.cpu(), TH.spectrum(c, max_count=max_count))
+    gold = G.spectrum(counts, max_count=max_count)
+    gold[0] = 0
+    assert np.array_equal(got.cpu().numpy(), gold)
+    fit = WSp.spectrum_with_cutoff(counts, device=dev)
+    cpu = WSp.spectrum_with_cutoff(counts, device="cpu")
+    assert np.array_equal(fit.pop("hist"), cpu.pop("hist")) and fit == cpu

@@ -1,8 +1,8 @@
 """zotpu_torch's own host modules against the JAX package's originals, on
 seeded numpy inputs. The port imports nothing of ``zotpu``; it keeps a copy
 of every host module it uses (semantics, io/{delta,bgzf,container,prefetch,
-native,fastq,wire}, reference_impl/golden, variants, sparse, the host-only
-CLI commands), and this file holds each copy equal to its original: equal
+native,fastq,wire}, reference_impl/golden, variants, sparse, stats, the
+host-only CLI commands), and this file holds each copy equal to its original: equal
 values, byte-equal files, byte-equal command output."""
 
 import gzip
@@ -363,6 +363,78 @@ def test_golden_set_functions_equal(fn):
             "error_peak_cutoff": (zg.spectrum(A[1]),),
             "sample": (A[0], A[1], 0.3, 4)}[fn]
     _same(getattr(zg, fn)(*args), getattr(tg, fn)(*args))
+
+
+# -------------------------------------------------------------------- stats
+
+def _spectrum_hist(kind):
+    """Count-of-counts tables shaped like real spectra (tests/test_stats.py
+    builds its fixtures the same way), and the degenerate ones."""
+    rng = np.random.default_rng(len(kind))
+    if kind == "empty":
+        return np.zeros(1025, np.float64)
+    if kind == "short":
+        return np.array([0, 5, 1], np.float64)
+    if kind == "no_valley":
+        return np.concatenate([[0], 1000.0 / np.arange(1, 60)])
+    lam = {"cov12": 12, "cov30": 30, "cov30_repeats": 30}[kind]
+    counts = np.concatenate([
+        rng.poisson(lam, 40000), 1 + rng.poisson(0.3, 9000),
+        rng.poisson(2 * lam, 4000 if kind.endswith("repeats") else 0)])
+    return np.bincount(np.minimum(counts, 1024),
+                       minlength=1025).astype(np.float64)
+
+
+_STATS_CALLS = {
+    "log_gamma": lambda rng: (rng.uniform(0.01, 200, 300),),
+    "log_fac": lambda rng: (rng.integers(0, 500, 300),),
+    "log_choose": lambda rng: (rng.integers(50, 500, 300),
+                               rng.integers(0, 50, 300)),
+    "log_add": lambda rng: (np.append(rng.normal(0, 50, 300), -np.inf),
+                            np.append(rng.normal(0, 50, 300), -np.inf)),
+    "log_sum": lambda rng: (np.vstack([rng.normal(0, 50, (20, 30)),
+                                       np.full((1, 30), -np.inf)]),),
+    "log_poisson_pdf": lambda rng: (7.5, np.arange(60)),
+    "poisson_pdf": lambda rng: (0.8, np.arange(20)),
+    "poisson_cdf": lambda rng: (25.0, 30),
+    "log_gamma_pdf": lambda rng: (rng.uniform(0.5, 9, 50),
+                                  rng.uniform(0.1, 3, 50),
+                                  rng.uniform(0.1, 40, 50)),
+    "ks_distance": lambda rng: (np.sort(rng.random(100)),
+                                np.sort(rng.random(100))),
+}
+
+
+@pytest.mark.parametrize("fn", sorted(_STATS_CALLS))
+def test_stats_functions_equal(fn):
+    zs, ts = _pair("stats")
+    args = _STATS_CALLS[fn](np.random.default_rng(len(fn)))
+    _same(getattr(zs, fn)(*args), getattr(ts, fn)(*args))
+
+
+@pytest.mark.parametrize("max_cov", [100, 40])
+@pytest.mark.parametrize("kind", ["cov12", "cov30", "cov30_repeats", "empty",
+                                  "short", "no_valley"])
+def test_stats_spectrum_mixture_fit_equal(kind, max_cov):
+    zs, ts = _pair("stats")
+    h = _spectrum_hist(kind)
+    dz = zs.spectrum_mixture_fit_detail(h, max_cov=max_cov)
+    dt = ts.spectrum_mixture_fit_detail(h, max_cov=max_cov)
+    assert dz == dt and list(dz) == list(dt)
+    assert [type(v) for v in dz.values()] == [type(v) for v in dt.values()]
+    assert zs.spectrum_mixture_fit(h, max_cov=max_cov) == (
+        ts.spectrum_mixture_fit(h, max_cov=max_cov))
+    if kind.startswith("cov"):
+        lam = 12 if kind == "cov12" else 30
+        assert abs(dt["lam_g"] - lam) < 0.1 * lam and dt["cutoff"] > 1
+
+
+def test_stats_public_names_match():
+    zs, ts = _pair("stats")
+    names = lambda m: {n for n in dir(m) if not n.startswith("_")}
+    assert names(zs) == names(ts)
+    assert names(ts) - {"np", "annotations"} == set(_STATS_CALLS) | {
+        "spectrum_mixture_fit", "spectrum_mixture_fit_detail"}
 
 
 # --------------------------------------------------- variants, sparse, CLI

@@ -71,8 +71,7 @@ def test_kmerize_cli_matches_jax_and_golden(fastq, tmp_path, capsys, max_len):
     assert np.array_equal(ks.counts, want_c)
     assert ks.meta["tool"] == "zotpu_torch kmerize"
     assert stats["batches"] > 2                 # the accumulator merged
-    for key in ("reads", "bases", "kmers", "batches", "unique"):
-        assert stats[key] == jstats[key], key
+    assert stats == jstats                      # the whole line, every key
     assert stats["reads"] == len(reads)
     for other in (jx, host):
         assert zcli.main(["verify", port, other]) == 0
@@ -111,9 +110,77 @@ def test_kmerize_capacity_error(fastq):
 
 
 def test_kmerize_spill_dir_not_yet_ported(fastq, tmp_path):
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TW.kmerize_paths([fastq[0]], 25, spill_dir=str(tmp_path),
-                         device="cpu")
+    """The name is from when ``spill_dir`` raised NotImplementedError: it
+    is ported now, and a spill run equals golden (test_torch_spill.py holds
+    it against the JAX package)."""
+    keys, counts = TW.kmerize_paths([fastq[0]], 25, batch_reads=512,
+                                    spill_dir=str(tmp_path), device="cpu")
+    want_k, want_c = G.kmerize(25, fastq[1])
+    assert np.array_equal(keys, want_k) and np.array_equal(counts, want_c)
+    assert len(list(tmp_path.glob("run*.zkf"))) > 2
+
+
+def test_stats_line_and_meta_have_exactly_the_jax_keys(fastq, tmp_path,
+                                                       capsys):
+    """The whole key set, in order, of the JSON line and of the container's
+    meta["stats"], one device and sharded: ``second_rounds`` is an
+    attribute of the port's Stats and stays out of as_dict()."""
+    from zotpu.workloads import kmerize as JW
+    assert list(TW.Stats().as_dict()) == list(JW.Stats().as_dict())
+    assert TW.Stats().as_dict() == JW.Stats().as_dict()
+    assert hasattr(TW.Stats(), "second_rounds")
+    path = fastq[0]
+    for shards in ([], ["--shards", "2"]):
+        args = ["kmerize", "-k", "25", "--batch-reads", "1024", *shards]
+        port, jx = str(tmp_path / "t.zkf"), str(tmp_path / "j.zkf")
+        assert tcli.main([*args, "--device", "cpu", port, path]) == 0
+        line = capsys.readouterr().out.strip().splitlines()[-1]
+        assert zcli.main([*args, jx, path]) == 0
+        assert line == capsys.readouterr().out.strip().splitlines()[-1]
+        assert list(json.loads(line)) == ["command", *JW.Stats().as_dict()]
+        pm, jm = container.read(port).meta, container.read(jx).meta
+        assert pm["stats"] == jm["stats"]
+        assert list(pm["stats"]) == list(jm["stats"])
+        assert pm["inputs"] == jm["inputs"] and list(pm) == list(jm)
+
+
+def test_kmerize_host_flag_matches_jax(fastq, tmp_path, capsys, monkeypatch):
+    """--host is the golden numpy path with its own stats; it needs no
+    device, so it runs where --device cuda would exit 1."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    path, reads = fastq
+    port, jx = str(tmp_path / "t.zkf"), str(tmp_path / "j.zkf")
+    assert tcli.main(["kmerize", "-k", "25", "--host", port, path]) == 0
+    line = capsys.readouterr().out
+    assert zcli.main(["kmerize", "-k", "25", "--host", jx, path]) == 0
+    assert line == capsys.readouterr().out
+    assert json.loads(line)["batches"] == 0
+    assert json.loads(line)["reads"] == len(reads)
+    a, b = container.read(port), container.read(jx)
+    assert np.array_equal(a.keys, b.keys)
+    assert np.array_equal(a.counts, b.counts)
+    assert a.meta["stats"] == b.meta["stats"]
+
+
+@pytest.mark.parametrize("flags,codec", [(["--compress"], "zlib"),
+                                         (["--codec", "delta", "--compress"],
+                                          "delta"), ([], "raw")])
+def test_kmerize_compress_flag_matches_jax(fastq, tmp_path, capsys, flags,
+                                           codec):
+    """--compress is the alias of --codec zlib, and --codec wins over it."""
+    path, _ = fastq
+    args = ["kmerize", "-k", "25", "--batch-reads", "1024", *flags]
+    port, jx = tmp_path / "t.zkf", tmp_path / "j.zkf"
+    assert tcli.main([*args, "--device", "cpu", str(port), path]) == 0
+    assert zcli.main([*args, str(jx), path]) == 0
+    capsys.readouterr()
+    assert container.read_header(str(port))["codec"] == codec
+    assert container.read_header(str(jx))["codec"] == codec
+    a, b = container.read(str(port)), container.read(str(jx))
+    assert np.array_equal(a.keys, b.keys)
+    assert np.array_equal(a.counts, b.counts)
+    # the same bytes apart from the tool's name in the meta
+    assert abs(port.stat().st_size - jx.stat().st_size) <= len("_torch") + 8
 
 
 def test_device_cuda_without_cuda_exits_1(fastq, tmp_path, capsys,
@@ -130,7 +197,9 @@ def test_port_imports_no_jax():
     """The conftest imports jax in-process, so check in a fresh one."""
     code = ("import sys; import zotpu_torch, zotpu_torch.cli, "
             "zotpu_torch.workloads.kmerize, zotpu_torch.kernels, "
-            "zotpu_torch.workloads.pulldown; "
+            "zotpu_torch.workloads.pulldown, zotpu_torch.workloads.setops, "
+            "zotpu_torch.workloads.spectrum, zotpu_torch.kernels.hist, "
+            "zotpu_torch.stats; "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
             "if m.startswith('jax'))")
     env = {**os.environ, "PYTHONPATH": REPO}

@@ -258,14 +258,19 @@ def test_kmerize_paths_sharded_matches_jax(reads, shard_hash):
     assert stats.second_rounds == 0
 
 
-def test_kmerize_paths_sharded_errors(reads, monkeypatch):
+def test_kmerize_paths_sharded_errors(reads, monkeypatch, tmp_path):
     path = reads[0]
     with pytest.raises(ValueError, match="all-to-all bucket overflow"):
         TW.kmerize_paths_sharded([path], 25, 4, batch_reads=256,
                                  max_len=128, capacity_factor=0.05,
                                  device="cpu")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
-        TW.kmerize_paths_sharded([path], 25, 2, spill_dir="x", device="cpu")
+    # spill mode checks the routing overflow batch by batch
+    with pytest.raises(ValueError,
+                       match=r"bucket overflow: raise capacity_factor"):
+        TW.kmerize_paths_sharded([path], 25, 4, batch_reads=256,
+                                 max_len=128, capacity_factor=0.05,
+                                 spill_dir=str(tmp_path), device="cpu")
+    assert not list(tmp_path.glob("*.zkf"))
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     with pytest.raises(ValueError, match=r"--shards 2 exceeds the 1 "):
         TW.kmerize_paths_sharded([path], 25, 2)
@@ -352,7 +357,7 @@ def test_cli_shards_errors(reads, tmp_path, capsys, monkeypatch):
     assert tcli.main(["kmerize", "-k", "25", "--device", "cpu", "--shards",
                       "3", out, path]) == 1
     assert "power of two" in capsys.readouterr().err
-    for flags in (["--spill-dir", str(tmp_path)],
+    for flags in (["--spill-dir", str(tmp_path), "--process-id", "1"],
                   ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
                    "--process-id", "0"]):
         assert tcli.main(["kmerize", "-k", "25", "--device", "cpu",

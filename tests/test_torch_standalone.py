@@ -52,7 +52,10 @@ def test_every_port_module_is_listed():
     names = {str(p.relative_to(ROOT)) for p in SOURCES}
     for need in ("zotpu_torch/semantics.py", "zotpu_torch/io/container.py",
                  "zotpu_torch/io/native.py", "zotpu_torch/variants.py",
-                 "zotpu_torch/reference_impl/golden.py", "chip_smoke.py"):
+                 "zotpu_torch/reference_impl/golden.py", "chip_smoke.py",
+                 "zotpu_torch/stats.py", "zotpu_torch/kernels/hist.py",
+                 "zotpu_torch/workloads/setops.py",
+                 "zotpu_torch/workloads/spectrum.py"):
         assert need in names
     assert (ROOT / "zotpu_torch/native/fastq_parser.cpp").exists()
     assert not list((ROOT / "zotpu_torch").rglob("*.so")) or all(
@@ -114,7 +117,7 @@ def test_every_module_imports_without_jax_or_zotpu(tmp_path):
                cwd=tmp_path)
     assert r.returncode == 0, r.stderr
     got = json.loads(r.stdout.strip().splitlines()[-1])
-    assert got == {"n": len(mods), "bad": []} and len(mods) >= 25
+    assert got == {"n": len(mods), "bad": []} and len(mods) >= 29
 
 
 @pytest.fixture(scope="module")
@@ -167,6 +170,60 @@ def test_cli_kmerize_and_scan_run_to_the_end_without_zotpu(small_run):
     assert r.returncode == 0 and json.loads(r.stdout)["equal"] is True
     r = _child(_CLI, "query", d / "out.zkf", reads[0][:21], cwd=d)
     assert r.returncode == 0 and json.loads(r.stdout)["count"] >= 1
+
+
+def test_cli_set_algebra_spill_and_spectrum_run_without_zotpu(small_run):
+    """merge, the set ops, jaccard, kmerize --spill-dir/--resume, hist and
+    filter with ``--device cpu`` in a process where ``jax`` and ``zotpu``
+    cannot be imported, against golden."""
+    from zotpu.io import container
+    from zotpu.reference_impl import golden as G
+    d, reads, _ = small_run
+    halves = {"a": reads[:200], "b": reads[100:]}
+    for name, rs in halves.items():
+        (d / f"{name}.fastq").write_text("".join(
+            f"@r{i}\n{r}\n+\n{'I' * len(r)}\n" for i, r in enumerate(rs)))
+        (d / f"spill_{name}").mkdir()
+        r = _child(_CLI, "kmerize", "-k", 21, "--device", "cpu",
+                   "--batch-reads", 64, "--max-len", 128, "--spill-dir",
+                   d / f"spill_{name}", d / f"{name}.zkf",
+                   d / f"{name}.fastq", cwd=d)
+        assert r.returncode == 0, r.stderr
+    r = _child(_CLI, "kmerize", "-k", 21, "--device", "cpu", "--batch-reads",
+               64, "--max-len", 128, "--spill-dir", d / "spill_a", "--resume",
+               "--shards", 2, d / "a2.zkf", d / "a.fastq", cwd=d)
+    assert r.returncode == 0, r.stderr
+    A, B = (G.kmerize(21, halves[n]) for n in "ab")
+    for name, want in (("a", A), ("a2", A), ("b", B)):
+        got = container.read(str(d / f"{name}.zkf"))
+        assert np.array_equal(got.keys, want[0])
+        assert np.array_equal(got.counts, want[1])
+    for cmd, flags, want in (
+            ("merge", [], G.merge([A, B])), ("union", [], G.union(A, B)),
+            ("intersect", ["--shards", 2], G.intersect(A, B)),
+            ("diff", ["--stream", "--shards", 2], G.difference(A, B))):
+        r = _child(_CLI, cmd, "--device", "cpu", *flags, d / f"{cmd}.zkf",
+                   d / "a.zkf", d / "b.zkf", cwd=d)
+        assert r.returncode == 0, r.stderr
+        got = container.read(str(d / f"{cmd}.zkf"))
+        assert np.array_equal(got.keys, want[0])
+        assert np.array_equal(got.counts, want[1])
+        assert got.meta["tool"] == f"zotpu_torch {cmd}"
+    r = _child(_CLI, "jaccard", "--device", "cpu", d / "a.zkf", d / "b.zkf",
+               cwd=d)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout)["intersect"] == len(G.intersect(A, B)[0])
+    r = _child(_CLI, "hist", "--device", "cpu", "--cutoff", d / "merge.zkf",
+               cwd=d)
+    assert r.returncode == 0, r.stderr
+    h = G.spectrum(G.merge([A, B])[1])
+    assert r.stdout.splitlines()[:-1] == [
+        f"{f}\t{int(h[f])}" for f in range(1, len(h)) if h[f]]
+    assert json.loads(r.stdout.splitlines()[-1])["command"] == "hist"
+    r = _child(_CLI, "filter", "--device", "cpu", "--auto", d / "f.zkf",
+               d / "merge.zkf", cwd=d)
+    assert r.returncode == 0, r.stderr
+    assert json.loads(r.stdout)["command"] == "filter"
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

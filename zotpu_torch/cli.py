@@ -1,8 +1,19 @@
 """Command-line interface of the PyTorch/CUDA port.
 
     python -m zotpu_torch kmerize -k K [--batch-reads N] [--max-len L]
-        [--merge-capacity N] [--shards N] [--shard-hash prefix|mixed]
-        [--codec C] [--device cuda|cpu] OUT IN...
+        [--merge-capacity N] [--spill-dir DIR [--resume]] [--shards N]
+        [--shard-hash prefix|mixed] [--host] [--codec C | --compress]
+        [--device cuda|cpu] OUT IN...
+    python -m zotpu_torch merge [--merge-capacity N] [--host] [--codec C]
+        [--device cuda|cpu] OUT IN...
+    python -m zotpu_torch union|intersect|diff [--shards N] [--stream]
+        [--host] [--codec C] [--device cuda|cpu] OUT A B
+    python -m zotpu_torch jaccard [--shards N] [--host] [--device cuda|cpu]
+        IN IN...
+    python -m zotpu_torch hist [--max-count N] [--cutoff] [--host]
+        [--device cuda|cpu] IN
+    python -m zotpu_torch filter [--min-count N | --auto] [--codec C]
+        [--device cuda|cpu] OUT IN
     python -m zotpu_torch scan [--per-read] [--out-reads FASTQ]
         [--min-hits N] [--host] [--batch-reads N] [--max-len L]
         [--shards N] [--shard-hash prefix|mixed] [--device cuda|cpu]
@@ -13,20 +24,24 @@
     python -m zotpu_torch query SET KMER... [--seq]
     python -m zotpu_torch verify A B
 
-``kmerize`` writes the same ZKF container as ``python -m zotpu kmerize``
-(keys and counts; the meta names this tool); ``scan`` and ``evidence``
-print the same lines and write the same read files as their ``zotpu``
-counterparts. ``--device`` defaults to cuda and never falls back: without
-a CUDA device it exits 1. ``--device cpu`` runs the kernels' plain PyTorch
-versions; ``--host`` runs the golden numpy reference. ``probes``, ``query``
-and ``verify`` are host-only copies of the JAX package's commands (the
-``probes`` container's meta names this tool).
+Every command that writes a set writes the same ZKF container as its
+``python -m zotpu`` counterpart (keys, counts and k; the meta names this
+tool) and prints the same lines; ``scan`` and ``evidence`` write the same
+read files. ``--device`` defaults to cuda and never falls back: without a
+CUDA device a command that has device work exits 1. ``--device cpu`` runs
+the kernels' plain PyTorch versions; ``--host`` runs the golden numpy
+reference. ``probes``, ``query``, ``verify`` and ``filter --min-count`` are
+host-only (the ``probes`` container's meta names this tool).
 
-``--shards N`` (a power of two) runs ``kmerize`` and ``scan`` sharded over
-N device slots of one process: ``cuda:0 .. cuda:N-1`` (N above the visible
-card count exits 1), or N CPU slots with ``--device cpu``. The multi-host
-flags (``--coordinator``, ``--num-processes``, ``--process-id``) and
-``kmerize --spill-dir/--resume`` are not yet ported and exit 1.
+``kmerize --spill-dir DIR`` writes each batch's run as a checkpoint file
+and ``--resume`` reuses the completed ones; the directories are
+interchangeable with ``python -m zotpu kmerize --spill-dir``.
+
+``--shards N`` (a power of two) runs ``kmerize``, ``scan``, the set ops and
+``jaccard`` sharded over N device slots of one process: ``cuda:0 ..
+cuda:N-1`` (N above the visible card count exits 1), or N CPU slots with
+``--device cpu``. The multi-host flags (``--coordinator``,
+``--num-processes``, ``--process-id``) are not yet ported and exit 1.
 """
 
 from __future__ import annotations
@@ -98,25 +113,216 @@ def _write_hit_reads(out_fh, path, per_read, min_hits):
 def cmd_kmerize(args):
     from zotpu_torch.workloads import kmerize as W
     _no_multihost(args, "kmerize")
-    device = _device(args.device)
     stats = W.Stats()
-    if args.shards > 1:
+    if args.host:
+        seqs = _read_all_seqs(args.inputs)
+        keys, counts = G.kmerize(args.k, seqs)
+        stats.reads = len(seqs)
+        stats.bases = sum(len(s) for s in seqs)
+        stats.kmers = int(counts.sum(dtype=np.uint64)) if len(counts) else 0
+        stats.unique = len(keys)
+    elif args.shards > 1:
         keys, counts = W.kmerize_paths_sharded(
             args.inputs, args.k, args.shards, batch_reads=args.batch_reads,
             max_len=args.max_len, stats=stats, spill_dir=args.spill_dir,
             resume=args.resume, merge_capacity=args.merge_capacity,
-            shard_hash=args.shard_hash, device=device)
+            shard_hash=args.shard_hash, device=_device(args.device))
     else:
         keys, counts = W.kmerize_paths(
             args.inputs, args.k, batch_reads=args.batch_reads,
             max_len=args.max_len, spill_dir=args.spill_dir, stats=stats,
-            merge_capacity=args.merge_capacity, device=device)
+            resume=args.resume, merge_capacity=args.merge_capacity,
+            device=_device(args.device))
     container.write(args.output, container.KmerSet(
         k=args.k, keys=keys, counts=counts,
         meta={"tool": "zotpu_torch kmerize", "inputs": args.inputs,
               "stats": stats.as_dict()}),
-        codec=args.codec or "raw")
+        codec=args.codec or ("zlib" if args.compress else "raw"))
     print(json.dumps({"command": "kmerize", **stats.as_dict()}))
+    return 0
+
+
+def cmd_merge(args):
+    """Merge N sets, counts summed (BASELINE config 2; zotpu/cli.py
+    cmd_merge).
+
+    Device path: inputs stream ONE AT A TIME from disk in fixed-size chunks
+    (container.ChunkReader decodes every codec incrementally) through the
+    device accumulator (workloads/accumulator.py), whose level merges run
+    on K3, so host memory peaks at O(chunk) however many runs are merged.
+    Saturating count addition does not depend on the order. --host keeps
+    the golden numpy merge (loads everything; small data)."""
+    k = None
+
+    def check_k(path, got):
+        nonlocal k
+        if k is None:
+            k = got
+        elif got != k:
+            raise ValueError(f"K mismatch: {path} has k={got}, expected {k}")
+
+    if args.host:
+        from zotpu_torch.workloads.kmerize import merge_runs
+        sets = []
+        for p in args.inputs:
+            ks, counts = _load_padded(p)
+            check_k(p, ks.k)
+            sets.append((ks.keys, counts))
+        keys, counts = merge_runs(sets, force_host=True)
+    else:
+        from zotpu_torch import keys as K
+        from zotpu_torch.workloads.accumulator import DeviceAccumulator
+        device = _device(args.device)
+        chunk = int(os.environ.get("ZOTPU_MERGE_CHUNK", 1 << 22))
+        acc = DeviceAccumulator(chunk, max_cap=args.merge_capacity,
+                                device=device)
+        for p in args.inputs:
+            r = container.ChunkReader(p)
+            check_k(p, r.k)
+            for kc, cc in r.chunks(chunk):
+                acc.add(*K.from_numpy_set(kc, cc, device),
+                        torch.tensor(len(kc), dtype=torch.int64,
+                                     device=device))
+        keys, counts = acc.result()
+    container.write(args.output, container.KmerSet(
+        k=k, keys=keys, counts=counts, meta={"tool": "zotpu_torch merge"}),
+        codec=args.codec or "raw")
+    print(json.dumps({"command": "merge", "inputs": len(args.inputs),
+                      "unique": len(keys)}))
+    return 0
+
+
+def _binary_setop(args, op):
+    """union / intersect / diff of two sets (BASELINE config 3; zotpu/cli.py
+    _binary_setop): one K3 launch on one device, one per slot with
+    --shards N, and with --stream the slots' rows are read straight from
+    the container files in O(chunk) host memory."""
+    from zotpu_torch.workloads import setops as WS
+    _no_multihost(args, op)
+    meta = {"tool": f"zotpu_torch {op}"}
+    if args.stream:
+        device = _device(args.device)
+        n_shards = args.shards if args.shards > 1 else (
+            torch.cuda.device_count() if device.type == "cuda" else 1)
+        k, keys, counts, cards = WS.set_op_sharded_stream(
+            args.a, args.b, op, n_shards, device=device)
+        container.write(args.output, container.KmerSet(
+            k=k, keys=keys, counts=counts, meta=meta),
+            codec=args.codec or "raw")
+        print(json.dumps({"command": op, "unique": len(keys),
+                          "cards": cards}))
+        return 0
+    a, ca = _load_padded(args.a)
+    b, cb = _load_padded(args.b)
+    if a.k != b.k:
+        raise ValueError(f"K mismatch ({a.k} vs {b.k})")
+    if args.host:
+        gold = {"union": G.union, "intersect": G.intersect,
+                "diff": G.difference}[op]
+        keys, counts = gold((a.keys, ca), (b.keys, cb))
+    elif args.shards > 1:
+        keys, counts, _ = WS.set_op_sharded(
+            (a.keys, ca), (b.keys, cb), op, a.k, args.shards,
+            device=_device(args.device))
+    else:
+        keys, counts = WS.set_op((a.keys, ca), (b.keys, cb), op=op,
+                                 device=_device(args.device))
+    container.write(args.output, container.KmerSet(
+        k=a.k, keys=keys, counts=counts, meta=meta),
+        codec=args.codec or "raw")
+    print(json.dumps({"command": op, "unique": len(keys)}))
+    return 0
+
+
+def _pair_jaccard(a, b, host, shards=1, cache=None, device=None):
+    if host:
+        ni = len(np.intersect1d(a.keys, b.keys))
+        nu = len(np.union1d(a.keys, b.keys))
+        na, nb = a.n, b.n
+    else:
+        from zotpu_torch.workloads import setops as WS
+        r = (WS.jaccard_sharded(a.keys, b.keys, a.k, shards, cache=cache,
+                                device=device)
+             if shards > 1 else WS.jaccard(a.keys, b.keys, device=device))
+        na, nb, ni, nu = r["a"], r["b"], r["intersect"], r["union"]
+    return int(na), int(nb), int(ni), int(nu)
+
+
+def cmd_jaccard(args):
+    """Pairwise similarity; with >2 inputs prints the full matrix."""
+    device = None if args.host else _device(args.device)
+    sets = [_load_padded(p)[0] for p in args.inputs]
+    if len(sets) == 2:
+        na, nb, ni, nu = _pair_jaccard(sets[0], sets[1], args.host,
+                                       args.shards, device=device)
+        print(json.dumps({"command": "jaccard", "a": na, "b": nb,
+                          "intersect": ni, "union": nu,
+                          "jaccard": ni / nu if nu else 0.0}))
+        return 0
+    # one partition cache for the whole matrix: each set is partitioned and
+    # uploaded ONCE, not once per pair
+    cache = {}
+    for i in range(len(sets)):
+        for j in range(i + 1, len(sets)):
+            _, _, ni, nu = _pair_jaccard(sets[i], sets[j], args.host,
+                                         args.shards, cache=cache,
+                                         device=device)
+            print(json.dumps({
+                "command": "jaccard", "a": args.inputs[i],
+                "b": args.inputs[j], "intersect": ni, "union": nu,
+                "jaccard": ni / nu if nu else 0.0}))
+    return 0
+
+
+def cmd_hist(args):
+    """Frequency spectrum of a set's counts (BASELINE config 4), one line
+    per occupied bin; --cutoff adds the mixture fit of stats.py."""
+    ks, counts = _load_padded(args.input)
+    if args.host:
+        h = G.spectrum(counts, max_count=args.max_count)
+    else:
+        from zotpu_torch.workloads import spectrum as WSp
+        h = WSp.spectrum(counts, max_count=args.max_count,
+                         device=_device(args.device))
+    for freq in range(1, len(h)):
+        if h[freq]:
+            print(f"{freq}\t{int(h[freq])}")
+    if args.cutoff:
+        from zotpu_torch import stats as ST
+        d = ST.spectrum_mixture_fit_detail(np.asarray(h, np.float64))
+        print(json.dumps({"command": "hist", "cutoff": int(d["cutoff"]),
+                          "coverage_peak": float(d["lam_g"]),
+                          "genome_size_estimate":
+                              int(d["genome_size_estimate"]),
+                          "error_rate_lambda": round(d["lam_e"], 4),
+                          "em_cutoff": int(d["em_cutoff"]),
+                          "mixture_weights":
+                              [round(x, 4) for x in d["weights"]],
+                          "fit_ks": round(d["ks"], 4)}))
+    return 0
+
+
+def cmd_filter(args):
+    """Drop k-mers below a count threshold (the config-4 error-trim step).
+
+    --auto derives the threshold from the spectrum's error-peak cutoff (the
+    device spectrum); --min-count N needs no device."""
+    ks, counts = _load_padded(args.input)
+    if args.auto:
+        from zotpu_torch.workloads import spectrum as WSp
+        min_count = WSp.spectrum_with_cutoff(
+            counts, device=_device(args.device))["cutoff"]
+    else:
+        min_count = args.min_count
+    if min_count is None:
+        raise ValueError("pass --min-count N or --auto")
+    mask = counts >= np.uint32(min_count)
+    container.write(args.output, container.KmerSet(
+        k=ks.k, keys=ks.keys[mask], counts=counts[mask],
+        meta={"tool": "zotpu_torch filter", "min_count": int(min_count)}),
+        codec=args.codec or "raw")
+    print(json.dumps({"command": "filter", "min_count": int(min_count),
+                      "kept": int(mask.sum()), "of": int(ks.n)}))
     return 0
 
 
@@ -395,9 +601,7 @@ def build_parser() -> argparse.ArgumentParser:
                              "PyTorch versions")
 
     def batch_flags(sp):
-        sp.add_argument("--host", action="store_true",
-                        help="use the golden numpy path instead of the "
-                             "device kernels")
+        host_flag(sp)
         sp.add_argument("--batch-reads", type=int, default=4096)
         sp.add_argument("--max-len", type=int, default=256)
         device_flag(sp)
@@ -406,15 +610,20 @@ def build_parser() -> argparse.ArgumentParser:
         sp.add_argument("--codec", choices=("raw", "zlib", "delta"),
                         default=None, help="output container codec")
 
-    def shard_flags(sp, what):
+    def host_flag(sp):
+        sp.add_argument("--host", action="store_true",
+                        help="use the golden numpy path instead of the "
+                             "device kernels")
+
+    def shard_flags(sp, what, shard_hash=True):
         sp.add_argument("--shards", type=int, default=1,
-                        help=f"{what} across N device slots (power of two; "
-                             f"all-to-all k-mer routing)")
-        sp.add_argument("--shard-hash", choices=("prefix", "mixed"),
-                        default="prefix", dest="shard_hash",
-                        help="shard owner function: key prefix or a mixed "
-                             "32-bit hash (balanced under GC-content skew; "
-                             "output bytes identical)")
+                        help=f"{what} across N device slots (power of two)")
+        if shard_hash:
+            sp.add_argument("--shard-hash", choices=("prefix", "mixed"),
+                            default="prefix", dest="shard_hash",
+                            help="shard owner function: key prefix or a "
+                                 "mixed 32-bit hash (balanced under "
+                                 "GC-content skew; output bytes identical)")
         sp.add_argument("--coordinator", default=None,
                         help="multi-host runs (not yet ported)")
         sp.add_argument("--num-processes", type=int, default=None,
@@ -429,15 +638,71 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("--merge-capacity", type=int, default=1 << 26,
                     help="device accumulator capacity in unique k-mers")
     sp.add_argument("--spill-dir", default=None,
-                    help="per-batch checkpoint runs (not yet ported)")
+                    help="write per-batch sorted runs here (restartable)")
     sp.add_argument("--resume", action="store_true",
-                    help="reuse runs in --spill-dir (not yet ported)")
+                    help="reuse completed runs in --spill-dir after a crash")
+    sp.add_argument("--compress", action="store_true",
+                    help="zlib-compress the output container blobs "
+                         "(legacy alias for --codec zlib)")
     shard_flags(sp, "shard the k-mer key space")
     out_codec(sp)
+    host_flag(sp)
     device_flag(sp)
     sp.add_argument("output")
     sp.add_argument("inputs", nargs="+")
     sp.set_defaults(fn=cmd_kmerize)
+
+    sp = sub.add_parser("merge", help="merge N sets, summing counts")
+    sp.add_argument("output")
+    sp.add_argument("inputs", nargs="+")
+    sp.add_argument("--merge-capacity", type=int, default=1 << 26,
+                    help="device accumulator capacity in unique k-mers")
+    host_flag(sp)
+    out_codec(sp)
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_merge)
+
+    for op in ("union", "intersect", "diff"):
+        sp = sub.add_parser(op, help=f"{op} of two sets")
+        sp.add_argument("output")
+        sp.add_argument("a")
+        sp.add_argument("b")
+        shard_flags(sp, "key-prefix-shard both sets", shard_hash=False)
+        sp.add_argument("--stream", action="store_true",
+                        help="partition the inputs straight from the "
+                             "container files in O(chunk) host memory (sets "
+                             "larger than host memory)")
+        host_flag(sp)
+        out_codec(sp)
+        device_flag(sp)
+        sp.set_defaults(fn=lambda a, _op=op: _binary_setop(a, _op))
+
+    sp = sub.add_parser("jaccard", help="similarity of two or more sets")
+    sp.add_argument("inputs", nargs="+")
+    sp.add_argument("--shards", type=int, default=1,
+                    help="shard the cardinality computation over N slots")
+    host_flag(sp)
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_jaccard)
+
+    sp = sub.add_parser("hist", help="k-mer frequency spectrum")
+    sp.add_argument("input")
+    sp.add_argument("--max-count", type=int, default=1024)
+    sp.add_argument("--cutoff", action="store_true",
+                    help="also print the error-peak cutoff")
+    host_flag(sp)
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_hist)
+
+    sp = sub.add_parser("filter", help="drop k-mers below a count threshold")
+    sp.add_argument("output")
+    sp.add_argument("input")
+    sp.add_argument("--min-count", type=int, default=None)
+    sp.add_argument("--auto", action="store_true",
+                    help="derive the threshold from the error-peak cutoff")
+    out_codec(sp)
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_filter)
 
     sp = sub.add_parser("scan", help="panel pulldown over read sets")
     sp.add_argument("panel")

@@ -11,6 +11,8 @@ hold u32 values saturating at ``COUNT_MAX``.
 
 from __future__ import annotations
 
+import warnings
+
 import numpy as np
 import torch
 
@@ -43,6 +45,26 @@ def to_hi_lo(keys, counts=None):
     if counts is None:
         return hi, lo
     return hi, lo, counts.cpu().numpy().astype(np.uint32)
+
+
+def from_numpy_set(keys, counts=None, device="cpu"):
+    """A container's (u64 keys, u32 counts) pair -> int64 tensors on device;
+    ``counts=None`` (a counts-less set) gives counts of one. The scan for
+    the largest key is the input's validation and assumes no order: a key
+    at or above 2**62 would be taken for padding, or sort before the others
+    as a negative int64."""
+    keys = np.ascontiguousarray(keys, np.uint64)
+    if len(keys) and keys.max() >= np.uint64(1 << 62):
+        raise ValueError("key >= 2**62 in a k-mer set")
+    with warnings.catch_warnings():
+        # a container's arrays are read-only views of its file's bytes; the
+        # tensor is an input that no kernel or plain version writes
+        warnings.simplefilter("ignore", UserWarning)
+        k = torch.from_numpy(keys.view(np.int64)).to(device)
+    if counts is None:
+        return k, torch.ones_like(k)
+    c = torch.from_numpy(np.asarray(counts, S.COUNT_DTYPE).astype(np.int64))
+    return k, c.to(device)
 
 
 def to_numpy_set(keys, counts, n: int):

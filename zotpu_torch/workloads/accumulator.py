@@ -105,11 +105,11 @@ class DeviceAccumulator:
             raise CapacityError(
                 f"accumulator overflowed its unique-key capacity by "
                 f"{overflow}; rerun with a larger --merge-capacity")
-        keys, counts = _to_host([entry[0][:n], entry[1][:n]])
+        keys, counts = to_host([entry[0][:n], entry[1][:n]])
         return K.to_numpy_set(keys, counts, n)
 
 
-def _to_host(parts):
+def to_host(parts):
     """Copy device tensors to the host, CUDA ones into one pinned buffer
     (a slice each) behind one synchronize of each device; returns host
     tensors."""
@@ -173,7 +173,7 @@ class ShardedAccumulator:
                     f"unique-key capacity by {overflow} (shard {d}); rerun "
                     f"with a larger --merge-capacity")
         ns = [n for _, n in stats]
-        host = _to_host([e[0][:n] for e, n in zip(entries, ns)]
+        host = to_host([e[0][:n] for e, n in zip(entries, ns)]
                         + [e[1][:n] for e, n in zip(entries, ns)])
         host = [t.numpy() for t in host]
         return host[:D], host[D:], ns

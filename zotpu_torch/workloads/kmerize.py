@@ -1,12 +1,14 @@
 """kmerize workload: FASTQ/FASTA -> sorted canonical k-mer set + counts.
 
-Port of zotpu/workloads/kmerize.py ``kmerize_paths`` in accumulator mode,
-with ``_iter_batches`` and ``Stats``. The host side is the JAX package's
-own shared code: ``fastq.parse_batches`` (halo = k-1), ``prefetch`` and the
-2-bit wire pack ``wire.pack_codes``. Per batch the device runs the pack
-kernel (K1; the wire form when ``max_len % 32 == 0``, u8 codes otherwise),
-``torch.sort``, the dedup-compact kernel (K2), and the accumulator's fused
-merges (K3). The result crosses to the host once, at the end.
+Port of zotpu/workloads/kmerize.py: ``kmerize_paths`` and
+``kmerize_paths_sharded`` in accumulator and in spill mode, with
+``_iter_batches``, ``Stats``, ``merge_runs`` and the spill-run checks. The
+host side is the port's copy of the shared code: ``fastq.parse_batches``
+(halo = k-1), ``prefetch`` and the 2-bit wire pack ``wire.pack_codes``. Per
+batch the device runs the pack kernel (K1; the wire form when ``max_len %
+32 == 0``, u8 codes otherwise), ``torch.sort``, the dedup-compact kernel
+(K2), and the accumulator's fused merges (K3). The result crosses to the
+host once, at the end.
 
 On CUDA each batch is copied from pinned host memory on a side stream with
 ``non_blocking=True``, and the copy starts before the previous batch's
@@ -16,8 +18,17 @@ merges are enqueued, so the two overlap.
 (``kmerize_paths_sharded`` in accumulator mode): each batch's rows split
 over the mesh's slots, the sharded step (dist/shuffle.py) routes every
 k-mer to its owner slot, and each slot's runs merge in its own LSM
-accumulator (``ShardedAccumulator``). Spill/resume (single-device or
-sharded) and multi-controller runs are not yet ported.
+accumulator (``ShardedAccumulator``).
+
+With ``spill_dir`` each batch's run crosses to the host (a plain copy of
+its dense prefix) and is written as ``run{batch:06d}.zkf`` with a layout
+stamp in its meta: the checkpoint. ``resume=True`` re-reads the runs whose
+stamp matches and recomputes the rest; the end is ``merge_runs`` over all
+runs (the host's golden merge below ``DEVICE_MERGE_THRESHOLD`` keys, the K3
+merge tree of workloads/setops.py at or above it). File names, keys, counts
+and stamps are the JAX package's, so either package resumes a directory the
+other left. Multi-controller runs (and their per-host ``.pN`` run files)
+are not yet ported.
 """
 
 from __future__ import annotations
@@ -30,14 +41,16 @@ import numpy as np
 import torch
 
 from zotpu_torch import semantics as S
-from zotpu_torch.io import fastq, wire
+from zotpu_torch import keys as K
+from zotpu_torch.io import container, fastq, wire
 from zotpu_torch.io.prefetch import prefetch, prefetch_many
 from zotpu_torch.dist import shuffle
 from zotpu_torch.dist.mesh import make_mesh
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.kernels.sortdedup import kmer_sort_dedup
+from zotpu_torch.reference_impl import golden as G
 from zotpu_torch.workloads.accumulator import (DeviceAccumulator,
-                                               ShardedAccumulator)
+                                               ShardedAccumulator, to_host)
 
 
 @dataclasses.dataclass
@@ -49,12 +62,49 @@ class Stats:
     unique: int = 0
     n_chips: int = 1
     # sharded runs only: valid k-mers each slot received over the run (the
-    # routing-skew metric), and the batches that took the overflow round
+    # routing-skew metric)
     routed_per_shard: list | None = None
+    # sharded runs only: the batches that took the overflow round. The JAX
+    # package's Stats has no such counter, so it stays out of as_dict()
+    # (the kmerize JSON line and the container's meta["stats"]).
     second_rounds: int | None = None
 
     def as_dict(self):
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        del d["second_rounds"]
+        return d
+
+
+DEVICE_MERGE_THRESHOLD = 1 << 20  # total keys from which the device tree wins
+
+
+def merge_runs(runs: list[tuple[np.ndarray, np.ndarray]],
+               force_host: bool = False, device="cuda"
+               ) -> tuple[np.ndarray, np.ndarray]:
+    """Tree-merge sorted (keys, counts) runs, summing counts (saturating).
+
+    Small totals merge on the host (the golden numpy merge); totals of
+    ``DEVICE_MERGE_THRESHOLD`` keys or more take the pairwise K3 merge tree
+    on ``device``. ``force_host=True`` pins the golden path regardless of
+    size (the --host cross-check never uses device kernels)."""
+    if not runs:
+        return np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
+    total = sum(len(r[0]) for r in runs)
+    if not force_host and total >= DEVICE_MERGE_THRESHOLD:
+        from zotpu_torch.workloads.setops import merge_tree_device
+        return merge_tree_device(runs, device=device)
+    while len(runs) > 1:
+        nxt = []
+        for i in range(0, len(runs) - 1, 2):
+            nxt.append(G.merge([runs[i], runs[i + 1]]))
+        if len(runs) % 2:
+            nxt.append(runs[-1])
+        runs = nxt
+    return runs[0]
+
+
+class Interrupted(RuntimeError):
+    """Raised by the fault-injection hook to simulate a mid-run crash."""
 
 
 def host_tensors(batch, wire_pack: bool, pin: bool):
@@ -121,15 +171,18 @@ def sharded_mesh(n_shards: int, device="cuda", devices=None):
 
 
 def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
-                  pin=False):
+                  pin=False, parallel=True):
     """Prefetched stream of each batch's host tensors; updates stats.
 
     stats.reads counts input RECORDS, not rows: halo-chunked overlong
     records span several rows (and possibly batches), deduplicated via
     record_ids. The wire pack and pinning run in the prefetch thread, so
-    they overlap device work. Several files parse in a small worker pool
-    (ZOTPU_PARSE_WORKERS overrides its size); batches of different files
-    then interleave, which the accumulator allows."""
+    they overlap device work. With ``parallel`` several files parse in a
+    small worker pool (ZOTPU_PARSE_WORKERS overrides its size); batches of
+    different files then INTERLEAVE, which only a consumer that does not
+    depend on insertion order allows (the accumulator). Spill mode passes
+    parallel=False: its numbered run files must cover the same reads on
+    every run, or a resume would count reads twice."""
 
     def parse_one(path):
         for batch in fastq.parse_batches(path, batch_reads, max_len,
@@ -148,7 +201,7 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
         stats.reads += n_rec
         stats.bases += batch.bases
 
-    if len(paths) > 1:
+    if parallel and len(paths) > 1:
         workers = int(os.environ.get("ZOTPU_PARSE_WORKERS",
                                      min(4, os.cpu_count() or 1)))
         last_ids: dict[int, int] = {}
@@ -172,41 +225,132 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
         yield host
 
 
+_STAMP_KEYS = ("k", "batch_reads", "max_len", "process_count",
+               "process_index", "n_shards", "shard_hash")
+
+
+def _load_run_if_valid(path, stamp):
+    """Read a spill run iff its layout stamp matches; None = recompute.
+
+    The match is exact over _STAMP_KEYS, not a subset check: a file whose
+    meta carries a layout key ABSENT from the caller's stamp (a sharded
+    run's ``n_shards`` found by a later plain resume with the same k,
+    batch_reads and max_len) covers a different batch layout and must be
+    recomputed."""
+    if not os.path.exists(path):
+        return None
+    ks = container.read(path)
+    if any(ks.meta.get(key) != val for key, val in stamp.items()):
+        return None                           # stale layout: recompute
+    if any(key in ks.meta and key not in stamp for key in _STAMP_KEYS):
+        return None                           # another mode's spill: recompute
+    return ks
+
+
+def resume_from_spills(spill_dir: str, device="cuda"
+                       ) -> tuple[np.ndarray, np.ndarray]:
+    """Rebuild the merged set from previously written per-batch runs.
+
+    Every run file must carry an IDENTICAL layout stamp (k, batching, and
+    for sharded runs the process and slot layout): run contents depend on
+    all of them, so a directory mixing leftovers of a run with a different
+    layout would count the reads the stale files cover twice. Mixed stamps
+    raise instead."""
+    runs = []
+    ref = None
+    for name in sorted(os.listdir(spill_dir)):
+        if not name.endswith(".zkf"):
+            continue
+        ks = container.read(os.path.join(spill_dir, name))
+        sig = (ks.k,) + tuple(ks.meta.get(key) for key in _STAMP_KEYS)
+        if ref is None:
+            ref = (name, sig)
+        elif sig != ref[1]:
+            raise ValueError(
+                f"spill dir mixes runs from different layouts: {ref[0]} has "
+                f"{ref[1]} but {name} has {sig}; delete the stale files or "
+                f"rerun kmerize with --spill-dir to recompute")
+        runs.append((ks.keys, ks.counts))
+    return merge_runs(runs, device=device)
+
+
+def _write_run(run_path, k, keys, counts, batch_no, stamp):
+    container.write(run_path, container.KmerSet(
+        k=k, keys=keys, counts=counts, meta={"run": batch_no, **stamp}))
+
+
 def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
                   max_len: int = 256, spill_dir: str | None = None,
-                  stats: Stats | None = None,
+                  stats: Stats | None = None, resume: bool = False,
+                  fail_after_batches: int | None = None,
                   merge_capacity: int = 1 << 26, device="cuda"
                   ) -> tuple[np.ndarray, np.ndarray]:
     """Kmerize files into one sorted unique (keys u64, counts u32) pair.
 
-    Per-batch runs stay on ``device`` and merge in the LSM accumulator
-    (workloads/accumulator.py); ``merge_capacity`` bounds its unique keys.
-    ``spill_dir`` (per-batch checkpoint files) is not yet ported and
-    raises NotImplementedError."""
-    if spill_dir is not None:
-        raise NotImplementedError(
-            "--spill-dir/--resume are not yet ported to zotpu_torch; run "
-            "`python -m zotpu kmerize --spill-dir` for checkpointed runs")
+    Default (no spill_dir): per-batch runs stay on ``device`` and merge in
+    the LSM accumulator (workloads/accumulator.py); ``merge_capacity``
+    bounds its unique keys.
+
+    With ``spill_dir`` (an existing directory) each batch's dense run is
+    copied to the host and written as a ZKF file, the checkpoint
+    granularity: ``resume=True`` re-reads completed runs instead of
+    recomputing them, so a crashed run redoes at most one batch. The files
+    parse one after another then, so that a run file covers the same reads
+    on every run. ``fail_after_batches`` is the fault-injection hook used
+    by tests: the batch in flight is written before the raise, so exactly
+    that many run files exist."""
     S.check_k(k)
     device = torch.device(device)
     stats = stats if stats is not None else Stats()
     on_cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_cuda else None
     wire_pack = max_len % 32 == 0  # striped wire words need 32 | L
+    use_acc = spill_dir is None
     acc: DeviceAccumulator | None = None
-    pending = None
+    runs: list[tuple[np.ndarray, np.ndarray]] = []
+    batch_no = 0
+    pending = None  # (device run, batch_no, run_path)
+    # run-file contents depend on the batching layout and on k
+    stamp = {"k": k, "batch_reads": batch_reads, "max_len": max_len}
 
-    def consume(run):
+    def consume(p):
         nonlocal acc
-        if acc is None:
-            acc = DeviceAccumulator(run[0].shape[0], max_cap=merge_capacity,
-                                    device=device)
-        acc.add(*run)
+        run, bno, run_path = p
+        if use_acc:
+            if acc is None:
+                acc = DeviceAccumulator(run[0].shape[0],
+                                        max_cap=merge_capacity, device=device)
+            acc.add(*run)
+            return
+        # spill mode transfers every batch by design
+        n = int(run[2])
+        keys, cnts = K.to_numpy_set(*to_host([run[0][:n], run[1][:n]]), n)
+        _write_run(run_path, k, keys, cnts, bno, stamp)
+        stats.kmers += int(cnts.sum(dtype=np.uint64))
+        runs.append((keys, cnts))
 
     for host in _iter_batches(paths, batch_reads, max_len, k, stats,
-                              wire_pack=wire_pack, pin=on_cuda):
+                              wire_pack=wire_pack, pin=on_cuda,
+                              parallel=use_acc):
+        batch_no += 1
+        run_path = (os.path.join(spill_dir, f"run{batch_no:06d}.zkf")
+                    if spill_dir is not None else None)
+        if resume and run_path:
+            ks = _load_run_if_valid(run_path, stamp)
+            if ks is not None:
+                if pending is not None:
+                    consume(pending)
+                    pending = None
+                stats.kmers += int(ks.counts.sum(dtype=np.uint64))
+                runs.append((ks.keys, ks.counts))
+                continue
+        if fail_after_batches is not None and batch_no > fail_after_batches:
+            if pending is not None:
+                consume(pending)
+            raise Interrupted(f"injected failure before batch {batch_no}")
         # Start this batch's upload, enqueue the previous batch's merges
-        # while it flies, then run this batch's step on the uploaded inputs.
+        # (or write its run) while it flies, then run this batch's step on
+        # the uploaded inputs.
         dev = upload(host, device, copy_stream)
         if pending is not None:
             consume(pending)
@@ -215,14 +359,15 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
             keys = pack_canonical_wire(*dev, k)
         else:
             keys = pack_canonical(*dev, k)
-        pending = kmer_sort_dedup(keys)
+        pending = (kmer_sort_dedup(keys), batch_no, run_path)
     if pending is not None:
         consume(pending)
-    if acc is None:
-        keys, counts = np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
+    if not use_acc:
+        keys, counts = merge_runs(runs, device=device)
     else:
-        keys, counts = acc.result()
-    stats.kmers = int(counts.sum(dtype=np.uint64))
+        keys, counts = (acc.result() if acc is not None else
+                        (np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)))
+        stats.kmers = int(counts.sum(dtype=np.uint64))
     stats.unique = len(keys)
     return keys, counts
 
@@ -232,6 +377,7 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
                           stats: Stats | None = None,
                           capacity_factor: float = 4.0,
                           spill_dir: str | None = None, resume: bool = False,
+                          fail_after_batches: int | None = None,
                           merge_capacity: int = 1 << 26,
                           shard_hash: str = "prefix", device="cuda",
                           devices=None, force_second_round: bool = False
@@ -243,22 +389,23 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
     end. The slots are ``devices`` when given (several may name one card),
     else n_shards slots of ``device``.
 
-    Routing overflow is checked once, at the end (a device-side counter),
-    and raises ValueError. ``spill_dir`` (with or without ``resume``) is not
-    yet ported and raises NotImplementedError; without it ``resume`` does
-    nothing, as in the JAX package. ``force_second_round`` is the step's flag
+    With ``spill_dir`` each batch's globally gathered run is written as a
+    ZKF checkpoint instead (a transfer a batch by design, the contract of
+    the single-device spill path); ``resume=True`` re-reads completed runs,
+    and without a ``spill_dir`` does nothing, as in the JAX package.
+    Routing overflow raises ValueError: checked once, at the end (a
+    device-side counter), in accumulator mode, and batch by batch in spill
+    mode. ``fail_after_batches`` is the tests' fault-injection hook.
+    ``force_second_round`` is the step's flag
     (dist/shuffle.make_kmerize_step)."""
-    if spill_dir is not None:
-        raise NotImplementedError(
-            "--spill-dir/--resume with --shards are not yet ported to "
-            "zotpu_torch; run `python -m zotpu kmerize --shards N "
-            "--spill-dir` for checkpointed sharded runs")
     S.check_k(k)
     stats = stats if stats is not None else Stats()
     stats.n_chips = n_shards
     mesh = sharded_mesh(n_shards, device, devices)
+    dev0 = mesh.devices[0]
     reads_per_chip = max(batch_reads // n_shards, 1)
     wire_pack = max_len % 32 == 0
+    use_acc = spill_dir is None
     step, cap_out = shuffle.make_kmerize_step(
         mesh, k, reads_per_chip, max_len, capacity_factor=capacity_factor,
         wire=wire_pack, shard_hash=shard_hash,
@@ -267,34 +414,74 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
     uploads = SlotUploads(mesh, reads_per_chip)
     pin = any(d.type == "cuda" for d in mesh.devices)
     overflow = routed = pending = None
+    runs: list[tuple[np.ndarray, np.ndarray]] = []
+    batch_no = 0
+    # a run file covers the reads of one batch under this slot layout
+    stamp = {"k": k, "process_count": 1, "process_index": 0,
+             "n_shards": n_shards, "batch_reads": batch_reads,
+             "max_len": max_len, "shard_hash": shard_hash}
+
+    def add(total, xs):
+        return xs if total is None else [a + b for a, b in zip(total, xs)]
+
     for host in _iter_batches(paths, reads_per_chip * n_shards, max_len, k,
-                              stats, wire_pack=wire_pack, pin=pin):
+                              stats, wire_pack=wire_pack, pin=pin,
+                              parallel=use_acc):
+        batch_no += 1
+        run_path = (os.path.join(spill_dir, f"run{batch_no:06d}.zkf")
+                    if spill_dir is not None else None)
+        if resume and run_path:
+            ks = _load_run_if_valid(run_path, stamp)
+            if ks is not None:
+                stats.kmers += int(ks.counts.sum(dtype=np.uint64))
+                runs.append((ks.keys, ks.counts))
+                continue
+        if fail_after_batches is not None and batch_no > fail_after_batches:
+            raise Interrupted(f"injected failure before batch {batch_no}")
         slots = uploads.start(host)
         if pending is not None:
             acc.add(pending)
         uploads.wait(slots)
         out = step(slots)
-        pending = [o[:3] for o in out]
-        ovf = [o[3] for o in out]
-        rt = [o[4] for o in out]
-        overflow = ovf if overflow is None else [
-            a + b for a, b in zip(overflow, ovf)]
-        routed = rt if routed is None else [a + b for a, b in zip(routed, rt)]
+        routed = add(routed, [o[4] for o in out])
+        if use_acc:
+            pending = [o[:3] for o in out]
+            overflow = add(overflow, [o[3] for o in out])
+            continue
+        # spill mode: the overflow check and the run's sizes cost one host
+        # sync a batch, by design
+        vals = torch.stack([x.to(dev0) for o in out for x in (o[3], o[2])]
+                           ).tolist()
+        if sum(vals[0::2]) > 0:
+            raise ValueError(
+                "all-to-all bucket overflow: raise capacity_factor")
+        ns = vals[1::2]
+        parts = [t.numpy() for t in to_host(
+            [o[0][:n] for o, n in zip(out, ns)]
+            + [o[1][:n] for o, n in zip(out, ns)])]
+        keys, cnts = shuffle.gather_global(
+            parts[:n_shards], parts[n_shards:], ns,
+            reorder=shard_hash == "mixed")
+        stats.kmers += int(cnts.sum(dtype=np.uint64))
+        _write_run(run_path, k, keys, cnts, batch_no, stamp)
+        runs.append((keys, cnts))
     if pending is not None:
         acc.add(pending)
     stats.second_rounds = step.second_rounds
-    if routed is None:
-        keys, counts = np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
-        stats.routed_per_shard = [0] * n_shards
-    else:
-        dev0 = mesh.devices[0]
-        vals = torch.stack([x.to(dev0) for x in overflow + routed]).tolist()
-        if sum(vals[:n_shards]) > 0:
+    if routed is not None:
+        vals = torch.stack([x.to(dev0) for x in routed + (overflow or [])]
+                           ).tolist()
+        stats.routed_per_shard = vals[:n_shards]
+        if sum(vals[n_shards:]) > 0:
             raise ValueError("all-to-all bucket overflow (deferred): raise "
                              "capacity_factor")
-        stats.routed_per_shard = vals[n_shards:]
+    if not use_acc:
+        keys, counts = merge_runs(runs, device=dev0)
+    elif overflow is None:
+        keys, counts = np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
+    else:
         keys, counts = shuffle.gather_global(
             *acc.result(), reorder=shard_hash == "mixed")
-    stats.kmers = int(counts.sum(dtype=np.uint64))
+        stats.kmers = int(counts.sum(dtype=np.uint64))
     stats.unique = len(keys)
     return keys, counts
