@@ -7,6 +7,16 @@ Phases (any failure exits non-zero; no exception is caught):
 
 1. the card's name and power limit (nvidia-smi), then the kernel build
    and the native FASTQ parser's (the numpy fallback in use is a failure);
+   then (1b) the self-test, the gate before the long phases: (a)
+   ``python -m zotpu_torch selftest -k 25`` in process on the card's own
+   slots (one card: D = 1, the mixed-hash check skips and both forced
+   second rounds run), (b) ``run_selftest(k=25, devices=[cuda:0] * 4)``,
+   whose D = 4 checks run over 4 slots on the card; each must end ``"ok":
+   true``, ``"failed": 0`` and not partial, and the two together must
+   launch K1a, K2, K3, K4, K4 tagged, K5, K6 and K7; (c) ``kmerize
+   --metrics --trace`` on a small fixture: the JSONL line has the JAX
+   package's keys and the stats line's counts, and the trace file is JSON
+   holding CUDA kernel events of K1a, K2 and K3;
 2. the card's device-to-device copy rate; the set-op, pack and
    receive-tree kernels (K3, K1, K5-K7) on the edge shapes of
    ``zotpu_torch/kernels/edge_cases.py``; then each
@@ -96,6 +106,7 @@ import contextlib
 import io
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -146,6 +157,16 @@ SHARD_CF = 4.0                 # kmerize_paths_sharded's capacity factor
 SETOP_BENCH_N = 1 << 24        # keys a side (harness.py bench_setops)
 SPILL_SAMPLES = 4              # samples of the spill/resume phase
 SET_OPS = ("union", "intersect", "diff")
+# the kernels the self-test's two runs must launch between them (K1b is
+# not on its path: max_len 128 takes the wire pack)
+SELFTEST_KERNELS = tuple(n for n in KERNEL_INFO if n != "pack_canonical")
+# --metrics line keys (zotpu/metrics.py: MetricsLogger.log and
+# kmerize_stage_metrics without --shards)
+METRICS_KEYS = {"ts", "host", "event", "bases_per_s", "kmers_per_s_per_chip",
+                "dedup_ratio", "reads", "bases", "kmers", "unique",
+                "n_chips"}
+# device functions of the kmerize path in csrc/: K1a, K2, K3
+TRACE_KERNELS = ("pack_wire_kernel", "dedup_kernel", "setop_kernel")
 
 
 def check(cond, what):
@@ -377,6 +398,124 @@ def profiled(torch, fn):
         f"top device rows (us): "
         f"{json.dumps([[n[:40], round(t, 1)] for n, t in top])}")
     return wall, busy_us
+
+
+def kernel_fn(name: str) -> str:
+    """A kernel event's demangled signature -> the function's own name,
+    e.g. "void (anonymous namespace)::setop_kernel<2>(long long const*,
+    ...)" -> "setop_kernel"."""
+    name = re.sub(r"^void |\(anonymous namespace\)::", "", name)
+    return name.split("(")[0].split("<")[0].split("::")[-1]
+
+
+def selftest_summary(lines, name, want_checks):
+    """The summary of a self-test run's JSON lines, checked: ok, nothing
+    failed, not partial, and every check in ``want_checks`` ran."""
+    rows = [json.loads(x) for x in lines]
+    summary = rows[-1]
+    ran = {r["check"] for r in rows if "ok" in r and "check" in r}
+    check(summary.get("command") == "selftest" and summary["ok"] is True
+          and summary["failed"] == 0 and "partial" not in summary,
+          f"{name}: the self-test passed in full ({json.dumps(summary)})")
+    check(ran == set(want_checks),
+          f"{name}: ran {sorted(ran)}, expected {sorted(want_checks)}")
+    return summary
+
+
+def phase_selftest(torch, dev, seed):
+    """Phase 1b: the self-test on the card's own slots through the CLI, and
+    over 4 slots on this card; then kmerize --metrics --trace."""
+    from zotpu_torch import kernels
+    from zotpu_torch.selftest import run_selftest
+
+    configs = ["config1_kmerize", "config2_merge", "config3_setops",
+               "config4_hist", "config5_scan", "sharded_setop_psum",
+               "sharded_setop_stream", "sharded_scan_stream_join",
+               "merge_chunk_streamed", "spill_stamp_rejection"]
+    fused = ["sharded_fused_dedup_gated", "sharded_fused_dedup_taken"]
+    n_cards = torch.cuda.device_count()
+    t_phase = time.perf_counter()
+    say(f"phase 1b: self-test, k={K}: (a) the CLI on {n_cards} card slot(s), "
+        f"(b) run_selftest over {SHARDS} slots on one card")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    lines = run_cli(["selftest", "-k", K])
+    secs_a = time.perf_counter() - t0
+    run_a = kernels.launches()
+    sum_a = selftest_summary(lines, "(a)", configs + fused + (
+        ["mixed_hash_sharded_step"] if n_cards > 1 else []))
+    lines = []
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    rc = run_selftest(k=K, verbose_print=lines.append,
+                      devices=[dev] * SHARDS)
+    secs_b = time.perf_counter() - t0
+    run_b = kernels.launches()
+    check(rc == 0, "(b): run_selftest returned 0")
+    sum_b = selftest_summary(lines, "(b)",
+                             configs + fused + ["mixed_hash_sharded_step"])
+    for name in SELFTEST_KERNELS:
+        check(run_a[name] + run_b[name] > 0,
+              f"the self-test launched {name}")
+    say("  self-test: " + json.dumps({
+        part: {"device": s["device"], "checks": s["checks"],
+               "seconds": round(secs, 3), "launches": run}
+        for part, s, secs, run in (("a", sum_a, secs_a, run_a),
+                                   ("b", sum_b, secs_b, run_b))}))
+    phase_metrics_trace(seed)
+    say(f"  phase 1b: {time.perf_counter() - t_phase:.3f} s in all")
+
+
+def phase_metrics_trace(seed):
+    """Phase 1b (c): kmerize --metrics --trace through the CLI on a small
+    fixture (a 20 kbp genome, 4,000 reads: 4 batches, so K3 merges too)."""
+    from zotpu_torch.io import container
+    from zotpu_torch.reference_impl import golden as G
+
+    rng = np.random.default_rng([seed, 7])
+    genome = rng.integers(0, 4, 20_000).astype(np.uint8)
+    codes = make_reads(rng, genome, 4000)
+    with tempfile.TemporaryDirectory() as tmp:
+        fq, out = os.path.join(tmp, "r.fastq"), os.path.join(tmp, "o.zkf")
+        mfile, tdir = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "tr")
+        with open(fq, "wb") as f:
+            write_fastq(f, codes, 0)
+        t0 = time.perf_counter()
+        lines = run_cli(["kmerize", "-k", K, "--batch-reads", 1024,
+                         "--max-len", MAX_LEN, "--metrics", mfile,
+                         "--trace", tdir, out, fq])
+        wall = time.perf_counter() - t0
+        stats = json.loads(lines[-1])
+        with open(mfile) as f:
+            rows = [json.loads(x) for x in f]
+        check(len(rows) == 1 and set(rows[0]) == METRICS_KEYS,
+              f"one --metrics line with the JAX package's keys: {rows}")
+        m = rows[0]
+        check(m["event"] == "kmerize" and m["host"] == 0
+              and all(m[key] == stats[key] for key in
+                      ("reads", "bases", "kmers", "unique", "n_chips")),
+              "the --metrics counts equal the stats line's")
+        text = np.frombuffer(b"ACGTN", np.uint8)[codes]
+        ks = container.read(out)
+        want = G.kmerize(K, [r.tobytes().decode() for r in text])
+        check(np.array_equal(ks.keys, want[0])
+              and np.array_equal(ks.counts, want[1]),
+              "the traced run's container equals golden")
+        path = os.path.join(tdir, "trace.json")
+        size = os.path.getsize(path)
+        with open(path) as f:
+            trace = json.load(f)
+        fns = [kernel_fn(e.get("name", "")) for e in trace["traceEvents"]
+               if str(e.get("cat", "")).lower() == "kernel"]
+        ours = {fn: fns.count(fn) for fn in TRACE_KERNELS}
+        check(all(ours.values()),
+              f"the trace holds CUDA kernel events of each of "
+              f"{TRACE_KERNELS}: {sorted(set(fns))}")
+    say(f"  kmerize --metrics --trace: {stats['reads']} reads, "
+        f"{stats['unique']} unique, CLI wall {wall:.3f} s under the "
+        f"profiler; metrics line {json.dumps(m)}; "
+        f"trace.json {size} B, {len(trace['traceEvents'])} events, "
+        f"{len(fns)} CUDA kernel events, of K1a, K2, K3: {json.dumps(ours)}")
 
 
 def phase_kernels(torch, dev, rng, genome, panel):
@@ -1471,6 +1610,7 @@ def main() -> int:
           "would change every end-to-end number)")
 
     dev = torch.device("cuda")
+    phase_selftest(torch, dev, args.seed)
     rng = np.random.default_rng(args.seed)
     genome = rng.integers(0, 4, GENOME_BP).astype(np.uint8)
     panel = make_panel(genome, args.seed)

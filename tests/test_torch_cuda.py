@@ -636,3 +636,21 @@ def test_spectrum_on_card_matches_cpu_and_golden(dev, max_count):
     fit = WSp.spectrum_with_cutoff(counts, device=dev)
     cpu = WSp.spectrum_with_cutoff(counts, device="cpu")
     assert np.array_equal(fit.pop("hist"), cpu.pop("hist")) and fit == cpu
+
+
+def test_selftest_on_card_slots(dev):
+    """The self-test over 4 slots on one card: every check, the D >= 2
+    ones and both forced second rounds included, byte-equal to golden,
+    through the CUDA kernels."""
+    from zotpu_torch import kernels
+    from zotpu_torch.selftest import run_selftest
+    lines = []
+    kernels.reset_launches()
+    assert run_selftest(k=15, verbose_print=lines.append,
+                        devices=[dev] * 4) == 0
+    run = kernels.launches()
+    summary = json.loads(lines[-1])
+    assert summary["ok"] is True and summary["failed"] == 0
+    assert summary["checks"] == 13 and "partial" not in summary
+    assert summary["device"] == str(dev)
+    assert all(n > 0 for name, n in run.items() if name != "pack_canonical")

@@ -55,7 +55,8 @@ def test_every_port_module_is_listed():
                  "zotpu_torch/reference_impl/golden.py", "chip_smoke.py",
                  "zotpu_torch/stats.py", "zotpu_torch/kernels/hist.py",
                  "zotpu_torch/workloads/setops.py",
-                 "zotpu_torch/workloads/spectrum.py"):
+                 "zotpu_torch/workloads/spectrum.py",
+                 "zotpu_torch/selftest.py", "zotpu_torch/metrics.py"):
         assert need in names
     assert (ROOT / "zotpu_torch/native/fastq_parser.cpp").exists()
     assert not list((ROOT / "zotpu_torch").rglob("*.so")) or all(
@@ -224,6 +225,63 @@ def test_cli_set_algebra_spill_and_spectrum_run_without_zotpu(small_run):
                d / "merge.zkf", cwd=d)
     assert r.returncode == 0, r.stderr
     assert json.loads(r.stdout)["command"] == "filter"
+
+
+_CLI_MANY = """import contextlib, io, json, sys
+from zotpu_torch.cli import main
+outs = []
+for argv in json.loads(sys.argv[1]):
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = main(argv)
+    outs.append([rc, buf.getvalue()])
+print(json.dumps(outs))
+"""
+
+
+def test_cli_selftest_and_host_commands_run_without_zotpu(small_run):
+    """``selftest --device cpu``, ``spikein``, ``kmerize --metrics
+    --trace``, ``sample``, ``casket``, ``info`` and ``dump``, one after
+    another in a process where ``jax`` and ``zotpu`` cannot be imported."""
+    from zotpu.io import container
+    from zotpu.reference_impl import golden as G
+    d, reads, genome = small_run
+    (d / "ref.fa").write_text(">chr1\n" + genome[:3000] + "\n")
+    alt = "T" if genome[999] != "T" else "A"
+    ck = str(d / "c.zkc")
+    argvs = [["selftest", "-k", "15", "--device", "cpu"],
+             ["spikein", d / "ref.fa", d / "sp.fastq",
+              f"chr1:g.1000{genome[999]}>{alt}", "--coverage", "5"],
+             ["kmerize", "-k", "21", "--device", "cpu", "--metrics",
+              d / "m.jsonl", "--trace", d / "tr", d / "k.zkf",
+              d / "reads.fastq"],
+             ["sample", "--rate", "0.5", d / "s.zkf", d / "k.zkf"],
+             ["casket", "new", ck, f"k={d / 'k.zkf'}"],
+             ["casket", "add", ck, "s", d / "s.zkf"],
+             ["casket", "extract", ck, "s", d / "s2.zkf"],
+             ["casket", "ls", ck],
+             ["info", ck, f"{ck}#s"],
+             ["dump", f"{ck}#s"]]
+    r = _child(_CLI_MANY, json.dumps([[str(a) for a in argv]
+                                      for argv in argvs]), cwd=d)
+    assert r.returncode == 0, r.stderr
+    outs = json.loads(r.stdout.splitlines()[-1])
+    assert [rc for rc, _ in outs] == [0] * len(argvs), r.stderr
+    out = dict(zip([a[0] if a[0] != "casket" else f"casket {a[1]}"
+                    for a in argvs], (o for _, o in outs)))
+    summary = json.loads(out["selftest"].splitlines()[-1])
+    assert summary["ok"] is True and summary["checks"] == 10
+    assert (d / "sp.fastq").read_text().startswith("@")
+    assert json.loads((d / "m.jsonl").read_text())["unique"] == len(
+        G.kmerize(21, reads)[0])
+    assert json.loads((d / "tr" / "trace.json").read_text())["traceEvents"]
+    want = G.sample(*G.kmerize(21, reads), 0.5)
+    assert np.array_equal(container.read(str(d / "s.zkf")).keys, want[0])
+    assert (d / "s2.zkf").read_bytes() == (d / "s.zkf").read_bytes()
+    assert [m["name"] for m in json.loads(out["casket ls"])["members"]] == [
+        "k", "s"]
+    assert json.loads(out["info"].splitlines()[1])["n"] == len(want[0])
+    assert len(out["dump"].splitlines()) == len(want[0])
 
 
 def test_chip_smoke_fails_without_a_card(tmp_path):

@@ -3,7 +3,7 @@
     python -m zotpu_torch kmerize -k K [--batch-reads N] [--max-len L]
         [--merge-capacity N] [--spill-dir DIR [--resume]] [--shards N]
         [--shard-hash prefix|mixed] [--host] [--codec C | --compress]
-        [--device cuda|cpu] OUT IN...
+        [--metrics FILE] [--trace DIR] [--device cuda|cpu] OUT IN...
     python -m zotpu_torch merge [--merge-capacity N] [--host] [--codec C]
         [--device cuda|cpu] OUT IN...
     python -m zotpu_torch union|intersect|diff [--shards N] [--stream]
@@ -21,17 +21,35 @@
     python -m zotpu_torch evidence [--out-reads DIR] [--min-hits N] [--host]
         [--batch-reads N] [--max-len L] [--device cuda|cpu] PANEL SAMPLE...
     python -m zotpu_torch probes -k K REFERENCE OUT VARIANT...
+    python -m zotpu_torch spikein [--vaf F] [--coverage X] [--read-len N]
+        [--error-rate F] [--seed N] [--transcripts TSV] REFERENCE OUT
+        VARIANT...
     python -m zotpu_torch query SET KMER... [--seq]
+    python -m zotpu_torch sample --rate F [--seed N] [--codec C] OUT IN
+    python -m zotpu_torch dump IN
+    python -m zotpu_torch info IN...
     python -m zotpu_torch verify A B
+    python -m zotpu_torch casket ls|new|add|extract CASKET ...
+    python -m zotpu_torch selftest [-k K] [--device cuda|cpu]
+    python -m zotpu_torch -V
 
 Every command that writes a set writes the same ZKF container as its
 ``python -m zotpu`` counterpart (keys, counts and k; the meta names this
 tool) and prints the same lines; ``scan`` and ``evidence`` write the same
-read files. ``--device`` defaults to cuda and never falls back: without a
-CUDA device a command that has device work exits 1. ``--device cpu`` runs
-the kernels' plain PyTorch versions; ``--host`` runs the golden numpy
-reference. ``probes``, ``query``, ``verify`` and ``filter --min-count`` are
-host-only (the ``probes`` container's meta names this tool).
+read files, ``spikein`` the same FASTQ. ``--device`` defaults to cuda and
+never falls back: without a CUDA device a command that has device work
+exits 1. ``--device cpu`` runs the kernels' plain PyTorch versions;
+``--host`` runs the golden numpy reference. ``probes``, ``spikein``,
+``query``, ``sample``, ``dump``, ``info``, ``verify``, ``casket`` and
+``filter --min-count`` are host-only (the ``probes`` and ``sample``
+containers' meta names this tool).
+
+``selftest`` runs every device path on small fixtures against golden and
+prints one JSON line per check and a summary; it exits 1 if a check is not
+byte-equal. ``kmerize --metrics FILE`` appends one JSONL line of stage
+metrics (rates, dedup ratio, counts; routing skew with ``--shards``), and
+``--trace DIR`` writes a torch.profiler Chrome trace to DIR/trace.json
+(CUDA activity included on cuda, where a trace without it is an error).
 
 ``kmerize --spill-dir DIR`` writes each batch's run as a checkpoint file
 and ``--resume`` reuses the completed ones; the directories are
@@ -51,6 +69,7 @@ import json
 import os
 import re
 import sys
+import time
 
 import numpy as np
 import torch
@@ -111,33 +130,47 @@ def _write_hit_reads(out_fh, path, per_read, min_hits):
 
 
 def cmd_kmerize(args):
+    from zotpu_torch import metrics
     from zotpu_torch.workloads import kmerize as W
     _no_multihost(args, "kmerize")
+    device = None if args.host else _device(args.device)
     stats = W.Stats()
-    if args.host:
-        seqs = _read_all_seqs(args.inputs)
-        keys, counts = G.kmerize(args.k, seqs)
-        stats.reads = len(seqs)
-        stats.bases = sum(len(s) for s in seqs)
-        stats.kmers = int(counts.sum(dtype=np.uint64)) if len(counts) else 0
-        stats.unique = len(keys)
-    elif args.shards > 1:
-        keys, counts = W.kmerize_paths_sharded(
-            args.inputs, args.k, args.shards, batch_reads=args.batch_reads,
-            max_len=args.max_len, stats=stats, spill_dir=args.spill_dir,
-            resume=args.resume, merge_capacity=args.merge_capacity,
-            shard_hash=args.shard_hash, device=_device(args.device))
-    else:
-        keys, counts = W.kmerize_paths(
-            args.inputs, args.k, batch_reads=args.batch_reads,
-            max_len=args.max_len, spill_dir=args.spill_dir, stats=stats,
-            resume=args.resume, merge_capacity=args.merge_capacity,
-            device=_device(args.device))
+    t0 = time.perf_counter()
+    with metrics.profiled(args.trace, device):
+        if args.host:
+            seqs = _read_all_seqs(args.inputs)
+            keys, counts = G.kmerize(args.k, seqs)
+            stats.reads = len(seqs)
+            stats.bases = sum(len(s) for s in seqs)
+            stats.kmers = (int(counts.sum(dtype=np.uint64)) if len(counts)
+                           else 0)
+            stats.unique = len(keys)
+        elif args.shards > 1:
+            keys, counts = W.kmerize_paths_sharded(
+                args.inputs, args.k, args.shards,
+                batch_reads=args.batch_reads, max_len=args.max_len,
+                stats=stats, spill_dir=args.spill_dir, resume=args.resume,
+                merge_capacity=args.merge_capacity,
+                shard_hash=args.shard_hash, device=device)
+        else:
+            keys, counts = W.kmerize_paths(
+                args.inputs, args.k, batch_reads=args.batch_reads,
+                max_len=args.max_len, spill_dir=args.spill_dir, stats=stats,
+                resume=args.resume, merge_capacity=args.merge_capacity,
+                device=device)
+    wall = time.perf_counter() - t0
     container.write(args.output, container.KmerSet(
         k=args.k, keys=keys, counts=counts,
         meta={"tool": "zotpu_torch kmerize", "inputs": args.inputs,
               "stats": stats.as_dict()}),
         codec=args.codec or ("zlib" if args.compress else "raw"))
+    if args.metrics:  # one controller: host 0
+        logger = metrics.MetricsLogger(args.metrics)
+        try:
+            logger.log("kmerize", **metrics.kmerize_stage_metrics(
+                stats, wall, n_chips=stats.n_chips))
+        finally:
+            logger.close()
     print(json.dumps({"command": "kmerize", **stats.as_dict()}))
     return 0
 
@@ -557,6 +590,57 @@ def cmd_query(args):
     return 0 if found or not specs else 1
 
 
+def cmd_spikein(args):
+    """Simulate reads from a reference with variants at a given VAF."""
+    args.variants = _expand_variant_specs(args.variants)
+    stats = V.spike_reads(args.reference, args.variants, args.output,
+                          coverage=args.coverage, vaf=args.vaf,
+                          read_len=args.read_len,
+                          error_rate=args.error_rate, seed=args.seed,
+                          transcripts_path=args.transcripts)
+    print(json.dumps({"command": "spikein", "output": args.output, **stats}))
+    return 0
+
+
+def cmd_sample(args):
+    ks, counts = _load_padded(args.input)
+    keys, cnts = G.sample(ks.keys, counts, args.rate, seed=args.seed)
+    container.write(args.output, container.KmerSet(
+        k=ks.k, keys=keys, counts=cnts,
+        meta={"tool": "zotpu_torch sample", "rate": args.rate,
+              "seed": args.seed}),
+        codec=args.codec or "raw")
+    print(json.dumps({"command": "sample", "kept": len(keys), "of": ks.n}))
+    return 0
+
+
+def cmd_dump(args):
+    ks, counts = _load_padded(args.input)
+    # vectorized text render: a per-key python loop (G.decode_kmer) takes
+    # minutes on a WGS-scale set; this does ~2M rows/s in numpy blocks
+    k = ks.k
+    shifts = np.array([2 * (k - 1 - i) for i in range(k)], np.uint64)
+    out = sys.stdout
+    for lo in range(0, ks.n, 1 << 20):
+        keys = ks.keys[lo:lo + (1 << 20)]
+        codes = (keys[:, None] >> shifts[None, :]) & np.uint64(3)
+        chars = S.DECODE_LUT[codes.astype(np.uint8)]
+        block = np.empty((len(keys), k + 1), np.uint8)
+        block[:, :k] = chars
+        block[:, k] = ord("\t")
+        text = block.tobytes().decode("ascii").split("\t")[:-1]
+        out.write("".join(f"{s}\t{int(c)}\n" for s, c in
+                          zip(text, counts[lo:lo + (1 << 20)])))
+    return 0
+
+
+def cmd_info(args):
+    for p in args.inputs:
+        hdr = container.read_header(p)
+        print(json.dumps({"file": p, **hdr}))
+    return 0
+
+
 def cmd_verify(args):
     a, ca = _load_padded(args.a)
     b, cb = _load_padded(args.b)
@@ -589,10 +673,58 @@ def cmd_verify(args):
     return 1
 
 
+def cmd_casket(args):
+    """Named-member containers. Members are complete ZKF streams; every
+    reading command accepts 'casket.zkc#member' addressing."""
+    if args.verb == "ls":
+        print(json.dumps({"file": args.casket,
+                          **container.casket_toc(args.casket)}))
+        return 0
+    if args.verb == "new":
+        members = []
+        for spec in args.members:
+            name, _, src = spec.partition("=")
+            if not name or not src:
+                raise ValueError(f"member spec {spec!r} is not NAME=SET.zkf")
+            members.append((name, container.read(src)))
+        ks = [m[1].k for m in members]
+        if len(set(ks)) > 1:
+            raise ValueError(f"K mismatch across members: {sorted(set(ks))}")
+        container.casket_write(args.casket, members,
+                               codec=args.codec or "raw")
+        print(json.dumps({"file": args.casket,
+                          "members": [m[0] for m in members]}))
+        return 0
+    if args.verb == "add":
+        container.casket_add(args.casket, args.name,
+                             container.read(args.source),
+                             codec=args.codec or "raw")
+        print(json.dumps({"file": args.casket, "added": args.name}))
+        return 0
+    if args.verb == "extract":
+        container.write(args.output,
+                        container.casket_read(args.casket, args.name),
+                        codec=args.codec or "raw")
+        print(json.dumps({"file": args.output, "from": args.casket,
+                          "member": args.name}))
+        return 0
+    raise AssertionError(args.verb)
+
+
+def cmd_selftest(args):
+    """The device paths against golden on small fixtures, byte for byte
+    (selftest.py): the gate to run on a card before a benchmark."""
+    from zotpu_torch.selftest import run_selftest
+    return run_selftest(k=args.k, device=_device(args.device))
+
+
 def build_parser() -> argparse.ArgumentParser:
+    from zotpu_torch import __version__
     p = argparse.ArgumentParser(
         prog="zotpu_torch", description=__doc__,
         formatter_class=argparse.RawDescriptionHelpFormatter)
+    p.add_argument("-V", "--version", action="version",
+                   version=f"zotpu_torch {__version__}")
     sub = p.add_subparsers(dest="command", required=True)
 
     def device_flag(sp):
@@ -646,6 +778,11 @@ def build_parser() -> argparse.ArgumentParser:
                          "(legacy alias for --codec zlib)")
     shard_flags(sp, "shard the k-mer key space")
     out_codec(sp)
+    sp.add_argument("--metrics", default=None,
+                    help="append JSONL stage metrics to this file")
+    sp.add_argument("--trace", default=None,
+                    help="write a torch.profiler trace (DIR/trace.json) of "
+                         "the run to this directory")
     host_flag(sp)
     device_flag(sp)
     sp.add_argument("output")
@@ -758,12 +895,74 @@ def build_parser() -> argparse.ArgumentParser:
                          "of their k-mers are present")
     sp.set_defaults(fn=cmd_query)
 
+    sp = sub.add_parser("spikein",
+                        help="simulate reads with variants at a given VAF")
+    sp.add_argument("reference")
+    sp.add_argument("output", help="FASTQ (.gz ok) to write")
+    sp.add_argument("variants", nargs="+",
+                    help="HGVS-style specs (@FILE reads one per line)")
+    sp.add_argument("--vaf", type=float, default=0.5)
+    sp.add_argument("--coverage", type=float, default=30.0)
+    sp.add_argument("--read-len", type=int, default=100)
+    sp.add_argument("--error-rate", type=float, default=0.0)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("--transcripts", metavar="TSV",
+                    help="gene models enabling c./n. variant specs")
+    sp.set_defaults(fn=cmd_spikein)
+
+    sp = sub.add_parser("sample", help="hash-threshold downsample")
+    sp.add_argument("--rate", type=float, required=True)
+    sp.add_argument("--seed", type=int, default=0)
+    sp.add_argument("output")
+    sp.add_argument("input")
+    out_codec(sp)
+    sp.set_defaults(fn=cmd_sample)
+
+    sp = sub.add_parser("dump", help="print k-mers and counts as text")
+    sp.add_argument("input")
+    sp.set_defaults(fn=cmd_dump)
+
+    sp = sub.add_parser("info", help="print container metadata")
+    sp.add_argument("inputs", nargs="+")
+    sp.set_defaults(fn=cmd_info)
+
     sp = sub.add_parser("verify", help="compare two sets byte-for-byte")
     sp.add_argument("a")
     sp.add_argument("b")
     sp.add_argument("--as-sets", action="store_true",
                     help="compare membership only")
     sp.set_defaults(fn=cmd_verify)
+
+    sp = sub.add_parser("casket", help="named-member containers; reading "
+                        "commands accept CASKET.zkc#member everywhere")
+    cs = sp.add_subparsers(dest="verb", required=True)
+    c = cs.add_parser("ls", help="print the member table")
+    c.add_argument("casket")
+    c.set_defaults(fn=cmd_casket)
+    c = cs.add_parser("new", help="build a casket from NAME=SET.zkf specs")
+    c.add_argument("casket")
+    c.add_argument("members", nargs="+", metavar="NAME=SET.zkf")
+    out_codec(c)
+    c.set_defaults(fn=cmd_casket)
+    c = cs.add_parser("add", help="add or replace one member")
+    c.add_argument("casket")
+    c.add_argument("name")
+    c.add_argument("source", help="a ZKF file or CASKET#member")
+    out_codec(c)
+    c.set_defaults(fn=cmd_casket)
+    c = cs.add_parser("extract", help="copy a member out to a ZKF file")
+    c.add_argument("casket")
+    c.add_argument("name")
+    c.add_argument("output")
+    out_codec(c)
+    c.set_defaults(fn=cmd_casket)
+
+    sp = sub.add_parser("selftest",
+                        help="every device path against golden on small "
+                             "fixtures (the gate before a benchmark)")
+    sp.add_argument("-k", type=int, default=25, dest="k")
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_selftest)
     return p
 
 
