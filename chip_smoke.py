@@ -91,7 +91,23 @@ Phases (any failure exits non-zero; no exception is caught):
 12. spectrum (config 4): ``hist --cutoff`` and ``filter --auto`` on phase
    3's container; the histogram must equal ``golden.spectrum``, the
    coverage peak must sit within 15% of 30 x 126 / 150 and the genome-size
-   estimate within 15% of the genome's length.
+   estimate within 15% of the genome's length;
+13. multi-controller runs on ``torch.distributed``: P = 2 processes started
+   by this script, each with L = 2 slots on this card (D = 4), on the gloo
+   backend (NCCL refuses two ranks on one card), run the CLI with
+   ``--coordinator --num-processes 2 --process-id I``: (a) ``kmerize`` of
+   the 16 samples, prefix and mixed owners, each equal to phase 3's
+   container (``verify``); (b) ``scan --per-read`` of the 16 samples:
+   process 0's summary lines equal phase 5's, and the per-read rows each
+   process prints for its own samples equal the single-device scan's
+   (phase 8's reference run); (c) ``union`` of phase 10's A and B,
+   streamed, equal to phase 10's union; (d) ``kmerize --spill-dir`` of
+   phase 11's samples crashed after one batch (``fail_after_batches``) and
+   resumed with ``--resume``: equal to phase 11's accumulator run, with a
+   run file per process and batch. Each call prints its wall time, the
+   bytes that crossed processes, the backend and each process's launches
+   of K1a, K3, K4 tagged, K5, K6 and K7, which must run. With two or more
+   cards the CLI itself also runs with one process per card on NCCL.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's launches, error, times and bound.
@@ -882,7 +898,8 @@ def phase_sharded_kmerize(torch, fx, tmp):
 def phase_sharded_scan(torch, fx, panel):
     """Phase 8: pulldown_paths_sharded with SHARDS slots on this card
     against the single-device pulldown_paths, per sample and per read.
-    Returns K7's and K4 tagged's launches."""
+    Returns K7's and K4 tagged's launches, the numbers, and the
+    single-device results."""
     from zotpu_torch import kernels
     from zotpu_torch.workloads import pulldown as P
 
@@ -912,7 +929,8 @@ def phase_sharded_scan(torch, fx, panel):
              "join_row_hits_tagged": run["join_row_hits_tagged"]},
             {"wall_s": wall, "bases_per_s": bases / wall,
              "profiled_wall_s": pwall,
-             "device_busy_ms": None if busy_us is None else busy_us / 1e3})
+             "device_busy_ms": None if busy_us is None else busy_us / 1e3},
+            want)
 
 
 def same_files(dir_a, dir_b):
@@ -1112,9 +1130,10 @@ def phase_setops(torch, dev, sets, tmp):
         f"matrix of 3 inputs) and {SHARDS} slots "
         f"({w_j * 1e3:.1f} ms, only the counts leave the card) equal the "
         f"oracle; K3 launches {launches['jaccard']}")
+    # union.zkf stays: phase 13's streamed multi-controller union is held
+    # against it
     pwall, busy_us = profiled(torch, lambda: run_cli(
         ["union", os.path.join(tmp, "union.zkf"), pa, pb]))
-    os.remove(os.path.join(tmp, "union.zkf"))
     return launches, {"a": A.n, "b": B.n, "wall_s": walls,
                       "host_read_s": read_s,
                       "union_profiled_wall_s": pwall,
@@ -1443,7 +1462,8 @@ def phase_main_path(torch, fx, tmp):
 def phase_scan(torch, fx, panel, tmp):
     """Phase 5: the scan path through the CLI at real size against an
     oracle that uses neither the join module nor K4, then the golden
-    subset through the u8 path; returns K4's launches in the main run."""
+    subset through the u8 path; returns K4's launches in the main run, the
+    numbers, and the run's summary lines."""
     from zotpu_torch.io import container, fastq
     from zotpu_torch.reference_impl import golden as G
     from zotpu_torch import kernels
@@ -1458,8 +1478,8 @@ def phase_scan(torch, fx, panel, tmp):
         f"keys, --batch-reads {BATCH_READS} --max-len {MAX_LEN}")
     kernels.reset_launches()
     t0 = time.perf_counter()
-    lines = run_cli(["scan", "--batch-reads", BATCH_READS, "--max-len",
-                     MAX_LEN, pz, *samples])
+    summary = lines = run_cli(["scan", "--batch-reads", BATCH_READS,
+                               "--max-len", MAX_LEN, pz, *samples])
     wall = time.perf_counter() - t0
     run = kernels.launches()
     got = [json.loads(x) for x in lines]
@@ -1534,7 +1554,7 @@ def phase_scan(torch, fx, panel, tmp):
         "kmers_probed": probed, "kmers_per_s": probed / wall,
         "batches": batches, "total_hits": total, "reads_with_hits": rwh,
         "host_wall_s": hwall, "profiled_wall_s": pwall,
-        "device_busy_ms": None if busy_us is None else busy_us / 1e3}
+        "device_busy_ms": None if busy_us is None else busy_us / 1e3}, summary
 
 
 def phase_evidence(torch, genome, tmp, seed):
@@ -1585,10 +1605,233 @@ def phase_evidence(torch, genome, tmp, seed):
         f"{json.dumps(written)}: equal to golden; launches {json.dumps(run)}")
 
 
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_processes(argvs, timeout):
+    """Start one process per argv together and wait for all of them; a
+    process still running at ``timeout`` seconds is killed (then every one
+    is). Fails unless every process exits 0. Returns their outputs. They
+    run from this script's directory (``-m zotpu_torch`` finds the port)
+    and share the host's cores between them."""
+    env = {**os.environ,
+           "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // len(argvs)))}
+    procs = [subprocess.Popen([sys.executable, *map(str, a)], env=env,
+                              cwd=os.path.dirname(os.path.abspath(__file__)),
+                              stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for a in argvs]
+    try:
+        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        for p in procs:
+            p.communicate()
+        raise
+    for p, out in zip(procs, outs):
+        check(p.returncode == 0, f"process {p.args} exited {p.returncode}:\n"
+              f"{out[-4000:]}")
+    return outs
+
+
+def multi_worker(spec_path, pid) -> int:
+    """One process of phase 13: joins the group on this card with the
+    spec's backend, then runs the spec's commands in order (the CLI with
+    the multi-controller flags, or the crashed spill run), each command's
+    stdout to a file, and writes each command's seconds, launches and bytes
+    sent to other processes. Any failure but the injected crash raises."""
+    import torch
+    import torch.distributed as dist
+    from zotpu_torch import cli, kernels
+    from zotpu_torch.dist import mesh as M
+    from zotpu_torch.workloads import kmerize as W
+
+    with open(spec_path) as f:
+        spec = json.load(f)
+    P = spec["processes"]
+    dev = M.init_distributed(spec["coordinator"], P, pid, "cuda",
+                             backend=spec["backend"])
+    flags = ["--coordinator", spec["coordinator"], "--num-processes", str(P),
+             "--process-id", str(pid)]
+    records = []
+    for j, cmd in enumerate(spec["commands"]):
+        kernels.reset_launches()
+        M.reset_sent_bytes()
+        out = f"{spec['out']}.cmd{j}.p{pid}"
+        t0 = time.perf_counter()
+        if cmd[0] == "crash":   # kmerize --spill-dir, failing before batch 2
+            kw = cmd[1]
+            try:
+                W.kmerize_paths_sharded(
+                    kw["inputs"][pid::P], K, kw["shards"],
+                    batch_reads=BATCH_READS, max_len=MAX_LEN,
+                    capacity_factor=SHARD_CF, spill_dir=kw["spill_dir"],
+                    fail_after_batches=1, device=dev)
+            except W.Interrupted as e:
+                rc = str(e)
+            else:
+                rc = "not interrupted"
+        else:
+            with open(out, "w") as f, contextlib.redirect_stdout(f):
+                rc = cli.main([str(a) for a in cmd] + flags)
+        torch.cuda.synchronize()
+        records.append({"rc": rc, "seconds": time.perf_counter() - t0,
+                        "launches": kernels.launches(),
+                        "sent_bytes": M.sent_bytes()})
+    with open(f"{spec['out']}.p{pid}.json", "w") as f:
+        json.dump(records, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_multi(torch, fx, tmp, scan_lines, per_read):
+    """Phase 13: the multi-controller CLI with 2 processes x 2 slots on this
+    card (gloo), against phases 3, 5 (8's single-device per-read hits), 10
+    and 11; then, with two or more cards, the CLI itself on NCCL."""
+    from zotpu_torch.io import container
+
+    P, backend = 2, "gloo"
+    samples = fx["samples"]
+    flags = ["--batch-reads", BATCH_READS, "--max-len", MAX_LEN, "--shards",
+             SHARDS]
+    out = {name: os.path.join(tmp, f"multi_{name}.zkf")
+           for name in ("prefix", "mixed", "union", "spill")}
+    spill_dir = os.path.join(tmp, "spill_multi")
+    os.mkdir(spill_dir)
+    spill_in = samples[:SPILL_SAMPLES]
+    calls = [
+        ("(a) kmerize prefix", ["kmerize", "-k", K, *flags, out["prefix"],
+                                *samples]),
+        ("(a) kmerize mixed", ["kmerize", "-k", K, *flags, "--shard-hash",
+                               "mixed", out["mixed"], *samples]),
+        ("(b) scan --per-read", ["scan", *flags, "--per-read",
+                                 os.path.join(tmp, "panel.zkf"), *samples]),
+        ("(c) union", ["union", "--shards", SHARDS, out["union"],
+                       os.path.join(tmp, "A.zkf"),
+                       os.path.join(tmp, "B.zkf")]),
+        ("(d) spill, crash", ["crash", {"inputs": spill_in, "shards": SHARDS,
+                                        "spill_dir": spill_dir}]),
+        ("(d) spill, --resume", ["kmerize", "-k", K, *flags, "--spill-dir",
+                                 spill_dir, "--resume", out["spill"],
+                                 *spill_in]),
+    ]
+    spec = {"coordinator": f"127.0.0.1:{free_port()}", "processes": P,
+            "backend": backend, "out": os.path.join(tmp, "multi"),
+            "commands": [c for _, c in calls]}
+    with open(spec["out"] + ".spec.json", "w") as f:
+        json.dump(spec, f)
+    say(f"phase 13: multi-controller, {P} processes x {SHARDS // P} slots on "
+        f"this card, backend {backend} (NCCL refuses two ranks on one card; "
+        f"passed to init_distributed as backend={backend!r})")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    run_processes([[os.path.abspath(__file__), "--worker",
+                    spec["out"] + ".spec.json", "--rank", pid]
+                   for pid in range(P)], timeout=600)
+    wall = time.perf_counter() - t0
+    recs = []
+    for pid in range(P):
+        with open(f"{spec['out']}.p{pid}.json") as f:
+            recs.append(json.load(f))
+
+    def printed(j, pid):
+        with open(f"{spec['out']}.cmd{j}.p{pid}") as f:
+            return f.read().splitlines()
+
+    result = {"processes": P, "slots_per_process": SHARDS // P,
+              "backend": backend, "wall_s_all": wall, "calls": {}}
+    want = {"pack_canonical_wire", "set_op_fused", "join_row_hits_tagged",
+            "merge_runs", "merge_dedup", "merge_runs_payload"}
+    ran = set()
+    for j, (name, _) in enumerate(calls):
+        rs = [r[j] for r in recs]
+        expect = ("injected failure before batch 2" if name.endswith("crash")
+                  else 0)
+        check(all(r["rc"] == expect for r in rs), f"{name}: {rs}")
+        runs = [{k: n for k, n in r["launches"].items() if n} for r in rs]
+        ran |= {k for r in runs for k in r}
+        row = {"wall_s": max(r["seconds"] for r in rs),
+               "sent_bytes": [r["sent_bytes"] for r in rs],
+               "launches": runs}
+        result["calls"][name] = row
+        say(f"  {name}: wall {row['wall_s']:.3f} s, bytes sent to the other "
+            f"process {row['sent_bytes']}, backend {backend}, launches per "
+            f"process {json.dumps(runs)}")
+    check(want <= ran, f"phase 13 launched {sorted(want - ran)} nowhere")
+    for mode in ("prefix", "mixed"):
+        verify_equal(out[mode], os.path.join(tmp, "ecoli30x.zkf"),
+                     f"(a) two-process kmerize ({mode}) equals phase 3's")
+    check([x for x in printed(2, 0) if x.startswith("{")] == scan_lines
+          and not [x for x in printed(2, 1) if x.startswith("{")],
+          "(b) process 0 printed phase 5's summary lines, process 1 none")
+    for pid in range(P):
+        rows = [x for x in printed(2, pid) if not x.startswith("{")]
+        mine = range(pid, len(samples), P)
+        check(rows == [f"{samples[i]}\t{r}\t{h}" for i in mine
+                       for r, h in enumerate(per_read[i][2])],
+              f"(b) process {pid}'s per-read rows equal the single-device "
+              f"scan's for its samples")
+    verify_equal(out["union"], os.path.join(tmp, "union.zkf"),
+                 "(c) the two-process streamed union equals phase 10's")
+    names = sorted(os.listdir(spill_dir))
+    check(all(f"run{b:06d}.p{p}.zkf" in names for p in range(P)
+              for b in (1, 2)) and len(names) % P == 0,
+          f"(d) a run file per process and batch: {names}")
+    verify_equal(out["spill"], os.path.join(tmp, "spill_acc.zkf"),
+                 "(d) the resumed two-process spill run equals phase 11's")
+    say(f"  equal: (a) phase 3's container, prefix and mixed; (b) phase 5's "
+        f"lines and the single-device per-read hits; (c) phase 10's union; "
+        f"(d) phase 11's result, {len(names)} run files; {wall:.1f} s for "
+        f"the processes in all; {card_line()}")
+    n = torch.cuda.device_count()
+    if n >= 2:
+        result["nccl"] = phase_multi_nccl(fx, tmp, 4 if n >= 4 else 2)
+    return result
+
+
+def phase_multi_nccl(fx, tmp, P):
+    """Phase 13 with two or more cards: the CLI itself, one process per
+    card (``python -m zotpu_torch ... --process-id I``, NCCL, --shards P)."""
+    say(f"  NCCL: the CLI itself, {P} processes, one per card")
+    flags = ["--batch-reads", BATCH_READS, "--max-len", MAX_LEN]
+    res = {}
+    for name, cmd in (("kmerize", ["kmerize", "-k", K, *flags,
+                                   os.path.join(tmp, "nccl.zkf"),
+                                   *fx["samples"]]),
+                      ("union", ["union", os.path.join(tmp, "nccl_u.zkf"),
+                                 os.path.join(tmp, "A.zkf"),
+                                 os.path.join(tmp, "B.zkf")])):
+        port = free_port()
+        t0 = time.perf_counter()
+        run_processes([["-m", "zotpu_torch", *cmd, "--coordinator",
+                        f"127.0.0.1:{port}", "--num-processes", P,
+                        "--process-id", pid] for pid in range(P)],
+                      timeout=600)
+        res[name] = time.perf_counter() - t0
+        say(f"  NCCL {name}: {P} processes, wall {res[name]:.3f} s "
+            f"(process start included)")
+    verify_equal(os.path.join(tmp, "nccl.zkf"),
+                 os.path.join(tmp, "ecoli30x.zkf"),
+                 "NCCL kmerize equals phase 3's container")
+    verify_equal(os.path.join(tmp, "nccl_u.zkf"),
+                 os.path.join(tmp, "union.zkf"),
+                 "NCCL union equals phase 10's")
+    return res
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--worker", default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--rank", type=int, default=0, help=argparse.SUPPRESS)
     args = ap.parse_args()
+    if args.worker:
+        return multi_worker(args.worker, args.rank)
 
     import torch
     if not torch.cuda.is_available():
@@ -1619,10 +1862,11 @@ def main() -> int:
     with tempfile.TemporaryDirectory() as tmp:
         fx = write_fixture(rng, genome, tmp)
         launches, e2e = phase_main_path(torch, fx, tmp)
-        launches["join_row_hits"], scan = phase_scan(torch, fx, panel, tmp)
+        launches["join_row_hits"], scan, scan_lines = phase_scan(
+            torch, fx, panel, tmp)
         phase_evidence(torch, genome, tmp, args.seed)
         launches.update(phase_sharded_kmerize(torch, fx, tmp))
-        sharded, sscan = phase_sharded_scan(torch, fx, panel)
+        sharded, sscan, per_read = phase_sharded_scan(torch, fx, panel)
         launches.update(sharded)
         sets, merge = phase_merge(torch, fx, tmp)
         op_launches, setops = phase_setops(torch, dev, sets, tmp)
@@ -1631,6 +1875,7 @@ def main() -> int:
         bench_rows = phase_setop_bench(torch, dev, args.seed)
         spill_launches, spill = phase_spill(torch, dev, fx, tmp)
         spectrum = phase_spectrum(torch, tmp)
+        multi = phase_multi(torch, fx, tmp, scan_lines, per_read)
     op_launches["merge"] += merge["set_op_fused"]
     by_path = {"kmerize": launches["set_op_fused"], **op_launches,
                "spill": spill_launches["set_op_fused"]}
@@ -1643,6 +1888,7 @@ def main() -> int:
     say(f"e2e set ops: {json.dumps(setops)}")
     say(f"spill/resume: {json.dumps(spill)}")
     say(f"spectrum: {json.dumps(spectrum)}")
+    say(f"multi-controller: {json.dumps(multi)}")
     say(f"K3 launches by path: {json.dumps(by_path)}")
     check(not any(m.split(".")[0] in ("jax", "zotpu") for m in sys.modules),
           "neither jax nor the JAX package zotpu was imported")

@@ -1,7 +1,9 @@
 """zotpu_torch kernels on the card: each CUDA kernel against its plain
 PyTorch version on the same CUDA tensors, and the kmerize, scan, merge,
 set-op, jaccard, spill/resume and spectrum paths on cuda against their CPU
-(plain-version) results and golden. These need a CUDA device and nvcc; elsewhere they skip.
+(plain-version) results and golden, and the multi-controller runs (gloo on
+one card, NCCL on distinct cards). These need a CUDA device and nvcc;
+elsewhere they skip.
 They import nothing of the JAX package, so they run on the card (which has
 no JAX, hence no conftest) with
 ``python -m pytest --noconftest -m cuda tests/test_torch_cuda.py``.
@@ -454,6 +456,115 @@ def test_sharded_cli_on_distinct_cards(dev, tmp_path, capsys):
             assert np.array_equal(got[1], want_c), key
         else:
             assert got == outs["1", "prefix", "scan"], key
+
+
+# ----- multi-controller runs (torch.distributed)
+
+
+def _multiproc():
+    """tests/test_torch_multiproc_mesh.py (``spawn``, ``free_port`` and the
+    CLI worker), loaded from its path: the card's run has no conftest, and
+    a ``tests`` package installed there would shadow this directory's."""
+    import importlib.util
+    import os
+    name = "test_torch_multiproc_mesh"
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(os.path.dirname(__file__), name + ".py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _multi_fixture(tmp_path, n_files=3):
+    rng = np.random.default_rng(12)
+    genome = rng.choice(list("ACGT"), size=30000)
+    paths, reads = [], []
+    for j in range(n_files):
+        rs = ["".join(genome[o:o + 150])
+              for o in rng.integers(0, 29850, max(1500 - 400 * j, 300))]
+        path = tmp_path / f"r{j}.fastq"
+        path.write_text("".join(f"@r{j}_{i}\n{r}\n+\n{'I' * len(r)}\n"
+                                for i, r in enumerate(rs)))
+        paths.append(str(path))
+        reads += rs
+    panel_k, _ = G.kmerize(25, ["".join(genome[:8000])])
+    pz = tmp_path / "p.zkf"
+    container.write(str(pz), container.KmerSet(k=25, keys=panel_k))
+    return paths, reads, str(pz)
+
+
+def test_multi_controller_gloo_on_one_card(dev, tmp_path, capsys):
+    """Two processes with 2 slots each on this card (gloo: NCCL refuses
+    two ranks on one card): kmerize (prefix, mixed) and scan --per-read
+    equal the single-process port over 4 slots on the card and golden, and
+    every process launched K1a, K5, K6, K3 (kmerize) and K7, K4 tagged
+    (scan)."""
+    run_cli_commands = _multiproc().run_cli_commands
+    paths, reads, pz = _multi_fixture(tmp_path)
+    flags = ["--batch-reads", 1024, "--max-len", 160, "--shards", 4]
+    cmds = [["kmerize", "-k", 25, *flags, "--shard-hash", mode,
+             tmp_path / f"m_{mode}.zkf", *paths]
+            for mode in ("prefix", "mixed")]
+    cmds.append(["scan", *flags, "--per-read", pz, *paths])
+    res = run_cli_commands(tmp_path, cmds, device="cuda", backend="gloo",
+                           info=True)
+    want_k, want_c = G.kmerize(25, reads)
+    for j, mode in enumerate(("prefix", "mixed")):
+        ks = container.read(str(tmp_path / f"m_{mode}.zkf"))
+        assert np.array_equal(ks.keys, want_k)
+        assert np.array_equal(ks.counts, want_c)
+        for rc, _, info in res[j]:
+            assert rc == 0 and info["sent_bytes"] > 0
+            for name in ("pack_canonical_wire", "merge_runs", "merge_dedup",
+                         "set_op_fused"):
+                assert info["launches"][name] > 0, (mode, name)
+    capsys.readouterr()
+    assert tcli.main([str(a) for a in ["scan", *flags[:4], "--per-read", pz,
+                                       *paths]]) == 0
+    single = capsys.readouterr().out.splitlines()
+    (rc0, out0, info0), (rc1, out1, info1) = res[2]
+    assert rc0 == rc1 == 0
+    rows = out0.splitlines() + out1.splitlines()
+    assert sorted(rows) == sorted(single)
+    assert [x for x in out0.splitlines() if x.startswith("{")] == [
+        x for x in single if x.startswith("{")]
+    for info in (info0, info1):
+        assert info["launches"]["merge_runs_payload"] > 0
+        assert info["launches"]["join_row_hits_tagged"] > 0
+
+
+def test_multi_controller_nccl_on_distinct_cards(dev, tmp_path, capsys):
+    """The CLI itself, one process per card on NCCL (P = 2 or 4 cards):
+    kmerize and scan equal the single-card run. Skips with fewer than 2
+    cards."""
+    mp = _multiproc()
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs 2 CUDA devices")
+    P = 4 if n >= 4 else 2
+    paths, reads, pz = _multi_fixture(tmp_path, n_files=P + 1)
+    flags = ["--batch-reads", 1024, "--max-len", 160]
+    outs = {}
+    for cmd in (["kmerize", "-k", 25, *flags, tmp_path / "n.zkf", *paths],
+                ["scan", *flags, "--per-read", pz, *paths]):
+        port = mp.free_port()
+        res = mp.spawn([["-m", "zotpu_torch", *cmd, "--coordinator",
+                      f"127.0.0.1:{port}", "--num-processes", P,
+                      "--process-id", pid] for pid in range(P)])
+        for rc, out in res:
+            assert rc == 0, out
+        outs[cmd[0]] = [out for _, out in res]
+    ks = container.read(str(tmp_path / "n.zkf"))
+    want_k, want_c = G.kmerize(25, reads)
+    assert np.array_equal(ks.keys, want_k) and np.array_equal(ks.counts,
+                                                              want_c)
+    capsys.readouterr()
+    assert tcli.main([str(a) for a in ["scan", *flags, "--per-read", pz,
+                                       *paths]]) == 0
+    single = capsys.readouterr().out.splitlines()
+    rows = [x for out in outs["scan"] for x in out.splitlines()
+            if x.startswith("{") or x.startswith(str(tmp_path))]
+    assert sorted(rows) == sorted(single)
 
 
 # ----- set algebra, merge, jaccard, spill/resume and spectrum on the card

@@ -150,19 +150,22 @@ def test_pulldown_paths_matches_jax(scan_data, tmp_path):
 
 
 def test_scan_multi_device_not_yet_ported(scan_data, capsys):
-    """The multi-host flags still exit 1; --shards N (one process) now
-    runs and prints the single-device lines."""
+    """The multi-controller flags' checks: --num-processes without
+    --coordinator or --process-id exits 1 with the JAX package's message
+    before any process group is joined; --coordinator alone is ignored, as
+    there; --shards N (one process) prints the single-device lines."""
     d, panel, samples, _ = scan_data
-    for extra in (["--coordinator", "127.0.0.1:1"],
-                  ["--num-processes", 2, "--process-id", 0]):
-        rc, out, err = _run(tcli.main, ["scan", panel, samples[0],
-                                        "--device", "cpu", *extra], capsys)
-        assert rc == 1 and out == ""
-        assert "not yet ported" in err and "multi-device" in err
+    for extra in (["--num-processes", 2, "--process-id", 0],
+                  ["--num-processes", 2, "--coordinator", "127.0.0.1:1"]):
+        argv = ["scan", panel, samples[0], *extra]
+        got = _run(tcli.main, [*argv, "--device", "cpu"], capsys)
+        assert got == _run(zcli.main, argv, capsys)
+        assert got == (1, "", "error: --num-processes needs --coordinator "
+                          "HOST:PORT and --process-id\n")
     runs = [_run(tcli.main, ["scan", panel, samples[0], "--device", "cpu",
-                             *extra], capsys) for extra in ([], ["--shards",
-                                                                 2])]
-    assert runs[0][0] == runs[1][0] == 0 and runs[0][1] == runs[1][1]
+                             *extra], capsys)
+            for extra in ([], ["--shards", 2], ["--coordinator", "h:1"])]
+    assert all(r[0] == 0 and r[1] == runs[0][1] for r in runs)
 
 
 def test_device_cuda_without_cuda_exits_1(scan_data, tmp_path, capsys,

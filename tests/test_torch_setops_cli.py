@@ -235,12 +235,21 @@ def test_binary_setop_k_mismatch_exits_1_with_the_same_message(
 
 @pytest.mark.parametrize("op", ["union", "intersect", "diff"])
 def test_binary_setop_multi_host_flag_exits_1(sets, tmp_path, capsys, op):
+    """A flag that cannot make a multi-controller run exits 1 before any
+    process group is joined: no --process-id (the JAX package's message),
+    or --shards not a multiple of the process count."""
     d, _ = sets
-    rc, out, err = _run(tcli.main, [
-        op, "--device", "cpu", "--coordinator", "127.0.0.1:1",
-        "--num-processes", 2, "--process-id", 0, tmp_path / "o.zkf",
-        d / "a.zkf", d / "b.zkf"], capsys)
-    assert rc == 1 and out == "" and "not yet ported" in err
+    argv = [op, "--num-processes", 2, "--coordinator", "127.0.0.1:1",
+            tmp_path / "o.zkf", d / "a.zkf", d / "b.zkf"]
+    got = _run(tcli.main, [*argv, "--device", "cpu"], capsys)
+    assert got == _run(zcli.main, argv, capsys)
+    assert got == (1, "", "error: --num-processes needs --coordinator "
+                          "HOST:PORT and --process-id\n")
+    rc, out, err = _run(tcli.main, [*argv, "--device", "cpu", "--process-id",
+                                    0, "--shards", 3], capsys)
+    assert rc == 1 and out == "" and err == (
+        "error: --shards 3 must be a power of two and a multiple of "
+        "--num-processes 2\n")
     assert not (tmp_path / "o.zkf").exists()
 
 

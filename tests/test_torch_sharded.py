@@ -357,12 +357,15 @@ def test_cli_shards_errors(reads, tmp_path, capsys, monkeypatch):
     assert tcli.main(["kmerize", "-k", "25", "--device", "cpu", "--shards",
                       "3", out, path]) == 1
     assert "power of two" in capsys.readouterr().err
-    for flags in (["--spill-dir", str(tmp_path), "--process-id", "1"],
-                  ["--coordinator", "127.0.0.1:1", "--num-processes", "2",
-                   "--process-id", "0"]):
-        assert tcli.main(["kmerize", "-k", "25", "--device", "cpu",
-                          "--shards", "2", *flags, out, path]) == 1
-        assert "not yet ported" in capsys.readouterr().err
+    multi = ["--coordinator", "127.0.0.1:1", "--num-processes", "2"]
+    for flags, err in (
+            (["--process-id", "0", "--shards", "6"], "--shards 6 must be a "
+             "power of two and a multiple of --num-processes 2"),
+            (["--process-id", "2", "--shards", "2"],
+             "--process-id 2 is not in [0, 2)")):
+        assert tcli.main(["kmerize", "-k", "25", "--device", "cpu", *multi,
+                          *flags, out, path]) == 1
+        assert capsys.readouterr().err == f"error: {err}\n"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
     assert tcli.main(["kmerize", "-k", "25", "--shards", "2", out,

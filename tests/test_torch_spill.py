@@ -360,11 +360,15 @@ def test_cli_spill_and_resume_match_jax(fq, tmp_path, capsys, shards):
 
 
 def test_cli_spill_with_a_multi_host_flag_exits_1(fq, tmp_path, capsys):
-    rc, out, err = _cli(tcli.main, [
-        "kmerize", "-k", K, "--device", "cpu", "--shards", 2, "--spill-dir",
-        tmp_path, "--coordinator", "127.0.0.1:1", "--num-processes", 2,
-        "--process-id", 0, tmp_path / "o.zkf", fq[0]], capsys)
-    assert rc == 1 and out == "" and "not yet ported" in err
+    """--num-processes without --process-id exits 1 with the JAX package's
+    message before any process group is joined, and writes no run file."""
+    argv = ["kmerize", "-k", K, "--shards", 2, "--spill-dir", tmp_path,
+            "--coordinator", "127.0.0.1:1", "--num-processes", 2,
+            tmp_path / "o.zkf", fq[0]]
+    got = _cli(tcli.main, [*argv, "--device", "cpu"], capsys)
+    assert got == _cli(zcli.main, argv, capsys)
+    assert got == (1, "", "error: --num-processes needs --coordinator "
+                          "HOST:PORT and --process-id\n")
     assert _runs(tmp_path) == []
 
 

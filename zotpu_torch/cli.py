@@ -3,11 +3,13 @@
     python -m zotpu_torch kmerize -k K [--batch-reads N] [--max-len L]
         [--merge-capacity N] [--spill-dir DIR [--resume]] [--shards N]
         [--shard-hash prefix|mixed] [--host] [--codec C | --compress]
-        [--metrics FILE] [--trace DIR] [--device cuda|cpu] OUT IN...
+        [--metrics FILE] [--trace DIR] [--device cuda|cpu]
+        [--coordinator HOST:PORT --num-processes P --process-id I] OUT IN...
     python -m zotpu_torch merge [--merge-capacity N] [--host] [--codec C]
         [--device cuda|cpu] OUT IN...
     python -m zotpu_torch union|intersect|diff [--shards N] [--stream]
-        [--host] [--codec C] [--device cuda|cpu] OUT A B
+        [--host] [--codec C] [--device cuda|cpu]
+        [--coordinator HOST:PORT --num-processes P --process-id I] OUT A B
     python -m zotpu_torch jaccard [--shards N] [--host] [--device cuda|cpu]
         IN IN...
     python -m zotpu_torch hist [--max-count N] [--cutoff] [--host]
@@ -17,6 +19,7 @@
     python -m zotpu_torch scan [--per-read] [--out-reads FASTQ]
         [--min-hits N] [--host] [--batch-reads N] [--max-len L]
         [--shards N] [--shard-hash prefix|mixed] [--device cuda|cpu]
+        [--coordinator HOST:PORT --num-processes P --process-id I]
         PANEL SAMPLE...
     python -m zotpu_torch evidence [--out-reads DIR] [--min-hits N] [--host]
         [--batch-reads N] [--max-len L] [--device cuda|cpu] PANEL SAMPLE...
@@ -58,8 +61,22 @@ interchangeable with ``python -m zotpu kmerize --spill-dir``.
 ``--shards N`` (a power of two) runs ``kmerize``, ``scan``, the set ops and
 ``jaccard`` sharded over N device slots of one process: ``cuda:0 ..
 cuda:N-1`` (N above the visible card count exits 1), or N CPU slots with
-``--device cpu``. The multi-host flags (``--coordinator``,
-``--num-processes``, ``--process-id``) are not yet ported and exit 1.
+``--device cpu``.
+
+Multi-controller runs: start the same command line once per process with
+``--coordinator HOST:PORT`` (process 0's address), ``--num-processes P``
+and ``--process-id I``. The processes join one ``torch.distributed`` group
+(NCCL on cards, gloo on the CPU); process I drives ``cuda:{I % cards}``,
+or the CPU with ``--device cpu``. ``--shards`` is then the global slot
+count: P by default, else a power of two and a multiple of P, each process
+holding ``shards / P`` slots on its device. ``kmerize`` reads the input
+files round-robin (process I the files I, I + P, ...), and process 0 writes
+the container; ``scan`` assigns the samples round-robin, process 0 prints
+the summary lines, the owner of a sample its ``--per-read`` rows, and each
+process writes its own ``--out-reads FILE.pI``; ``union|intersect|diff``
+run streamed, every process reading its slots' rows from the shared files,
+and process 0 writes the result. Every result equals the single-controller
+run's. ``--host`` is refused with more than one process.
 """
 
 from __future__ import annotations
@@ -73,6 +90,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from zotpu_torch import semantics as S
 from zotpu_torch import variants as V
@@ -89,13 +107,43 @@ def _device(name: str) -> torch.device:
     return torch.device(name)
 
 
-def _no_multihost(args, command: str) -> None:
-    if args.coordinator or args.num_processes or args.process_id is not None:
-        raise NotImplementedError(
-            f"the multi-host flags (--coordinator, --num-processes, "
-            f"--process-id) are not yet ported to zotpu_torch (multi-device "
-            f"runs across processes); run `python -m zotpu {command}` with "
-            f"them")
+def _multi(args) -> bool:
+    return bool(args.num_processes and args.num_processes > 1)
+
+
+def _init_multihost(args, device, files=None, assign=True):
+    """Join the run's process group from the CLI flags (zotpu/cli.py
+    _init_multihost). Returns (process id, files for this process, the
+    device it drives). ``files`` (default args.inputs) go round-robin to
+    the processes when ``assign``; scan passes assign=False, as
+    pulldown_paths_sharded assigns the samples by their global position.
+    Every process runs the same command line. ``--shards`` becomes the
+    global slot count: the process count by default, else a power of two
+    and a multiple of it. The flags are checked before the group is
+    joined, so a bad one exits 1 at once on every process."""
+    files = args.inputs if files is None else files
+    if not _multi(args):
+        return 0, files, device
+    P, pid = args.num_processes, args.process_id
+    if pid is None or args.coordinator is None:
+        raise ValueError(
+            "--num-processes needs --coordinator HOST:PORT and --process-id")
+    if not 0 <= pid < P:
+        raise ValueError(f"--process-id {pid} is not in [0, {P})")
+    from zotpu_torch.dist import mesh as M
+    if args.shards <= 1:
+        args.shards = P
+    M.check_process_shards(args.shards, P)
+    device = M.init_distributed(args.coordinator, P, pid, device)
+    return pid, files[pid::P] if assign else files, device
+
+
+def _no_host_multi(args) -> None:
+    if args.host and _multi(args):
+        # the golden path ignores the file assignment: every process would
+        # read every input (or write its own part as the result)
+        raise ValueError("--host is not supported with --num-processes > 1 "
+                         "(run the host oracle single-controller)")
 
 
 def _load_padded(path: str):
@@ -132,8 +180,10 @@ def _write_hit_reads(out_fh, path, per_read, min_hits):
 def cmd_kmerize(args):
     from zotpu_torch import metrics
     from zotpu_torch.workloads import kmerize as W
-    _no_multihost(args, "kmerize")
+    _no_host_multi(args)
     device = None if args.host else _device(args.device)
+    host_id, inputs, device = _init_multihost(args, device)
+    args = argparse.Namespace(**{**vars(args), "inputs": inputs})
     stats = W.Stats()
     t0 = time.perf_counter()
     with metrics.profiled(args.trace, device):
@@ -159,13 +209,14 @@ def cmd_kmerize(args):
                 resume=args.resume, merge_capacity=args.merge_capacity,
                 device=device)
     wall = time.perf_counter() - t0
-    container.write(args.output, container.KmerSet(
-        k=args.k, keys=keys, counts=counts,
-        meta={"tool": "zotpu_torch kmerize", "inputs": args.inputs,
-              "stats": stats.as_dict()}),
-        codec=args.codec or ("zlib" if args.compress else "raw"))
-    if args.metrics:  # one controller: host 0
-        logger = metrics.MetricsLogger(args.metrics)
+    if host_id == 0:  # every process holds the result; process 0 writes
+        container.write(args.output, container.KmerSet(
+            k=args.k, keys=keys, counts=counts,
+            meta={"tool": "zotpu_torch kmerize", "inputs": args.inputs,
+                  "stats": stats.as_dict()}),
+            codec=args.codec or ("zlib" if args.compress else "raw"))
+    if args.metrics:
+        logger = metrics.MetricsLogger(args.metrics, host_id=host_id)
         try:
             logger.log("kmerize", **metrics.kmerize_stage_metrics(
                 stats, wall, n_chips=stats.n_chips))
@@ -228,22 +279,30 @@ def cmd_merge(args):
 def _binary_setop(args, op):
     """union / intersect / diff of two sets (BASELINE config 3; zotpu/cli.py
     _binary_setop): one K3 launch on one device, one per slot with
-    --shards N, and with --stream the slots' rows are read straight from
-    the container files in O(chunk) host memory."""
+    --shards N, and with --stream (always in a multi-controller run) the
+    slots' rows are read straight from the container files in O(chunk)
+    host memory; across processes the cardinalities are summed, the
+    process sets gathered, and process 0 writes."""
     from zotpu_torch.workloads import setops as WS
-    _no_multihost(args, op)
     meta = {"tool": f"zotpu_torch {op}"}
-    if args.stream:
-        device = _device(args.device)
+    if args.stream or _multi(args):
+        host_id, _, device = _init_multihost(args, _device(args.device),
+                                             files=[], assign=False)
         n_shards = args.shards if args.shards > 1 else (
             torch.cuda.device_count() if device.type == "cuda" else 1)
         k, keys, counts, cards = WS.set_op_sharded_stream(
             args.a, args.b, op, n_shards, device=device)
-        container.write(args.output, container.KmerSet(
-            k=k, keys=keys, counts=counts, meta=meta),
-            codec=args.codec or "raw")
-        print(json.dumps({"command": op, "unique": len(keys),
-                          "cards": cards}))
+        if _multi(args):
+            from zotpu_torch.dist import shuffle
+            from zotpu_torch.workloads.kmerize import sharded_mesh
+            keys, counts = shuffle.allgather_host_sets(
+                sharded_mesh(n_shards, device), keys, counts)
+        if host_id == 0:
+            container.write(args.output, container.KmerSet(
+                k=k, keys=keys, counts=counts, meta=meta),
+                codec=args.codec or "raw")
+            print(json.dumps({"command": op, "unique": len(keys),
+                              "cards": cards}))
         return 0
     a, ca = _load_padded(args.a)
     b, cb = _load_padded(args.b)
@@ -360,12 +419,17 @@ def cmd_filter(args):
 
 
 def cmd_scan(args):
-    """Panel pulldown over read sets (zotpu/cli.py cmd_scan, single
-    controller). Overlong reads are halo-chunked into several device rows,
-    and the rows re-aggregate per input record, so totals, reads_with_hits
-    and --per-read rows stay record-aligned."""
-    _no_multihost(args, "scan")
+    """Panel pulldown over read sets (zotpu/cli.py cmd_scan). Overlong reads
+    are halo-chunked into several device rows, and the rows re-aggregate per
+    input record, so totals, reads_with_hits and --per-read rows stay
+    record-aligned. In a multi-controller run every process holds every
+    sample's summary and process 0 prints them; per-read vectors exist only
+    on the sample's owner, which prints and writes them (each process to
+    its own --out-reads file, suffixed .pI)."""
+    _no_host_multi(args)
     device = None if args.host else _device(args.device)
+    host_id, _, device = _init_multihost(args, device, files=args.samples,
+                                         assign=False)
     panel, _ = _load_padded(args.panel)
     if args.host:
         results = []
@@ -385,11 +449,17 @@ def cmd_scan(args):
         results = pulldown.pulldown_paths(
             panel.keys, args.samples, panel.k, batch_reads=args.batch_reads,
             max_len=args.max_len, device=device)
-    out_fh = open(args.out_reads, "w") if args.out_reads else None
+    out_path = args.out_reads
+    if out_path and _multi(args):
+        out_path = f"{out_path}.p{host_id}"
+    out_fh = open(out_path, "w") if out_path else None
     for path, (total, reads_hit, per_read) in zip(args.samples, results):
-        print(json.dumps({"command": "scan", "sample": path,
-                          "k": panel.k, "total_hits": total,
-                          "reads_with_hits": reads_hit}))
+        if host_id == 0:
+            print(json.dumps({"command": "scan", "sample": path,
+                              "k": panel.k, "total_hits": total,
+                              "reads_with_hits": reads_hit}))
+        if per_read is None:
+            continue  # another process owns this sample's rows
         if args.per_read:
             for i, h in enumerate(per_read):
                 print(f"{path}\t{i}\t{h}")
@@ -757,11 +827,12 @@ def build_parser() -> argparse.ArgumentParser:
                                  "mixed 32-bit hash (balanced under "
                                  "GC-content skew; output bytes identical)")
         sp.add_argument("--coordinator", default=None,
-                        help="multi-host runs (not yet ported)")
+                        help="HOST:PORT of process 0 for multi-controller "
+                             "runs (torch.distributed)")
         sp.add_argument("--num-processes", type=int, default=None,
-                        help="multi-host runs (not yet ported)")
+                        help="total processes of a multi-controller run")
         sp.add_argument("--process-id", type=int, default=None,
-                        help="multi-host runs (not yet ported)")
+                        help="this process's id in [0, num-processes)")
 
     sp = sub.add_parser("kmerize", help="FASTA/FASTQ -> k-mer set with counts")
     sp.add_argument("-k", type=int, required=True, dest="k")
@@ -968,6 +1039,8 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
+    # a group this call joins it also leaves; a caller's group stays
+    owned = not dist.is_initialized()
     try:
         return args.fn(args)
     except BrokenPipeError:
@@ -977,9 +1050,12 @@ def main(argv=None) -> int:
         except OSError:
             pass
         return 0
-    except (ValueError, FileNotFoundError, NotImplementedError) as e:
+    except (ValueError, FileNotFoundError) as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        if owned and dist.is_initialized():
+            dist.destroy_process_group()
 
 
 if __name__ == "__main__":

@@ -1,9 +1,10 @@
 """Hash-space-sharded kmerize and pulldown steps over a mesh of device slots.
 
-Port of zotpu/dist/shuffle.py for a single controller (dist/mesh.py). Each
-slot owns a contiguous range of the 2k-bit key space selected by the top
-p = log2(D) key bits (prefix sharding), or by the top bits of a 32-bit
-avalanche of the key (``shard_hash="mixed"``, balanced under GC skew).
+Port of zotpu/dist/shuffle.py (dist/mesh.py: one process, or P processes
+of L slots each). Each slot owns a contiguous range of the 2k-bit key
+space selected by the top p = log2(D) key bits (prefix sharding), or by
+the top bits of a 32-bit avalanche of the key (``shard_hash="mixed"``,
+balanced under GC skew).
 A step packs each slot's read rows (K1), sorts them so owners are
 non-decreasing, fills fixed-capacity per-destination buckets, exchanges
 them with the mesh's ``all_to_all`` (an overflow second round takes what a
@@ -17,10 +18,13 @@ first-round bucket could not hold), and merges the D received runs:
 
 Keys are the port's int64 keys (keys.py); every received run is ascending
 (the TPU's ``reverse_odd`` alternating direction is not kept), and
-capacities are not rounded to a tile. This module imports no JAX: the JAX
-module's numpy helpers ``gather_global`` and ``partition_panel`` are
-copied here, not imported. Multi-controller helpers (``gather_local_rows``,
-``allgather_host_sets``, ``hosts_prefix_ordered``) are not yet ported.
+capacities are not rounded to a tile. A step takes and returns this
+process's L slots, indexed globally where it matters (a slot's own entry
+of the routed volumes, the read-row ids). This module imports no JAX: the
+JAX module's numpy helpers ``gather_global`` and ``partition_panel`` are
+copied here, not imported, and the multi-controller helpers
+``hosts_prefix_ordered``, ``gather_local_rows`` and ``allgather_host_sets``
+are ported on the mesh's collectives.
 """
 
 from __future__ import annotations
@@ -282,7 +286,7 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
                       force_second_round: bool = False):
     """The sharded kmerize step (``shuffle.make_kmerize_step``).
 
-    Returns (step, cap_out). ``step(inputs)`` takes one tuple per slot,
+    Returns (step, cap_out). ``step(inputs)`` takes one tuple per local slot,
     (codes (R, L) u8, lengths) or with ``wire=True`` (packed, mask,
     lengths) on that slot's device, R = reads_per_chip, and returns one
     (ukeys, counts, n_unique, overflow, routed) tuple per slot: a dense
@@ -338,7 +342,7 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
                                           dedup=True)
             else:
                 run = dedup_compact(torch.sort(rk).values)
-            out.append((*run, r.overflow[d], routed[d][d]))
+            out.append((*run, r.overflow[d], routed[d][mesh.first + d]))
         return out
 
     step.second_rounds = 0
@@ -351,13 +355,14 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
     """The sharded panel pulldown step (``shuffle.make_pulldown_step``,
     BASELINE config 5).
 
-    ``step(inputs, panels)`` takes one input tuple per slot (as in
-    make_kmerize_step) and slot d's panel row (``partition_panel`` with the
-    same ``shard_hash``, on slot d's device). Each window carries its
-    global read-row id (slot d's rows are d * R .. d * R + R - 1) through
-    the routing. Each slot merges its received probes with K7 (row id as
-    the payload) and counts its panel hits per row with K4's tagged entry;
-    ``psum`` over slots gives every slot the same (D * R,) int32 row hits.
+    ``step(inputs, panels)`` takes one input tuple per local slot (as in
+    make_kmerize_step) and that slot's panel row (``partition_panel`` with
+    the same ``shard_hash``, on the slot's device). Each window carries its
+    global read-row id (global slot d's rows are d * R .. d * R + R - 1)
+    through the routing. Each slot merges its received probes with K7 (row
+    id as the payload) and counts its panel hits per row with K4's tagged
+    entry; ``psum`` over all D slots gives every local slot the same
+    (D * R,) int32 row hits.
     Returns (row hits per slot, overflow per slot). Where mixed routing
     cannot embed the owner the received probes are not key-sorted; K4's
     tagged entry needs no sorted probes, so they go to it unmerged (JAX's
@@ -375,7 +380,7 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
 
     def step(inputs, panels):
         keys, rids, owners = [], [], []
-        for d, inp in enumerate(inputs):
+        for d, inp in enumerate(inputs, start=mesh.first):
             x = _pack(inp, k, wire)
             rid = torch.arange(d * reads_per_chip, (d + 1) * reads_per_chip,
                                device=x.device).repeat_interleave(m_per_read)
@@ -418,6 +423,49 @@ def gather_global(keys, counts, n_unique, reorder: bool = False):
     keys = np.concatenate(keys_out) if keys_out else np.empty(0, np.uint64)
     cnts = (np.concatenate(cnt_out) if cnt_out
             else np.empty(0, S.COUNT_DTYPE))
+    if reorder and len(keys):
+        order = np.argsort(keys, kind="stable")
+        keys, cnts = keys[order], cnts[order]
+    return keys, cnts
+
+
+# Multi-controller: a step's outputs are already this process's slots'
+# rows, so gathering them is gather_global over the local lists.
+gather_local_rows = gather_global
+
+
+def hosts_prefix_ordered(mesh) -> bool:
+    """True when every process's slots are contiguous in the mesh AND the
+    process ranges ascend with the process index: the layout in which
+    gather_local_rows / allgather_host_sets concatenate prefix-sharded
+    results already sorted (otherwise callers pass reorder=True)."""
+    seen: dict[int, list[int]] = {}
+    for i, p in enumerate(mesh.owners):
+        seen.setdefault(p, []).append(i)
+    prev_end = -1
+    for p in sorted(seen):
+        idxs = seen[p]
+        if idxs != list(range(idxs[0], idxs[0] + len(idxs))):
+            return False
+        if idxs[0] <= prev_end:
+            return False
+        prev_end = idxs[-1]
+    return True
+
+
+def allgather_host_sets(mesh, keys, cnts, reorder: bool = False):
+    """Combine every process's (u64 keys, u32 counts) into the global set
+    on EVERY process. Slot key ranges are disjoint, so no counts combine;
+    prefix sharding concatenates sorted (processes hold ascending slot
+    ranges in process order), mixed passes reorder=True for a final stable
+    sort. Keys and counts cross as int64 on the mesh's device."""
+    dev = mesh.devices[0]
+    both = torch.stack([torch.from_numpy(np.asarray(keys).astype(np.int64)),
+                        torch.from_numpy(np.asarray(cnts).astype(np.int64))],
+                       dim=1).to(dev)
+    both = mesh.allgather(both).cpu().numpy()
+    keys = both[:, 0].astype(np.uint64)
+    cnts = both[:, 1].astype(S.COUNT_DTYPE)
     if reorder and len(keys):
         order = np.argsort(keys, kind="stable")
         keys, cnts = keys[order], cnts[order]

@@ -131,22 +131,27 @@ def to_host(parts):
 class ShardedAccumulator:
     """Per-slot LSM accumulator of the sharded kmerize path.
 
-    Port of zotpu/workloads/accumulator.py ``ShardedAccumulator`` for the
-    single-controller mesh (dist/mesh.py): each slot runs its own
-    DeviceAccumulator on its device, with every level merge on K3 with
-    device valid counts. Slot key ranges are disjoint, so slots never merge
-    with each other. Nothing synchronizes with the host until ``result()``,
-    which checks the deferred overflow of every slot with one read and
-    copies the dense prefixes into one pinned buffer.
+    Port of zotpu/workloads/accumulator.py ``ShardedAccumulator``: each of
+    this process's slots runs its own DeviceAccumulator on its device, with
+    every level merge on K3 with device valid counts. Slot key ranges are
+    disjoint, so slots never merge with each other. Nothing synchronizes
+    with the host until ``result()``, which checks the deferred overflow of
+    every slot with one read and copies the dense prefixes into one pinned
+    buffer; with a multi-controller ``mesh`` it first gathers every
+    process's slots, so that every process returns the global result.
 
     ``max_cap`` is the global unique-key capacity; each slot gets
-    ``max(max_cap // D, batch_capacity)``. ``CapacityError`` follows the
-    port's rule (DeviceAccumulator): it is raised iff a slot's final unique
-    count exceeds that, with ``batch_capacity`` the step's run capacity
-    itself, not rounded up to a TPU tile as in the JAX package."""
+    ``max(max_cap // D, batch_capacity)``, D the mesh's global slot count
+    (``len(devices)`` without a mesh). ``CapacityError`` follows the port's
+    rule (DeviceAccumulator): it is raised iff a slot's final unique count
+    exceeds that, with ``batch_capacity`` the step's run capacity itself,
+    not rounded up to a TPU tile as in the JAX package."""
 
-    def __init__(self, devices, batch_capacity: int, max_cap: int = 1 << 26):
-        per_slot = max(max_cap // len(devices), batch_capacity)
+    def __init__(self, devices, batch_capacity: int, max_cap: int = 1 << 26,
+                 mesh=None):
+        self.mesh = mesh
+        D = mesh.size if mesh is not None else len(devices)
+        per_slot = max(max_cap // D, batch_capacity)
         self.slots = [DeviceAccumulator(batch_capacity, max_cap=per_slot,
                                         device=dev) for dev in devices]
 
@@ -156,16 +161,20 @@ class ShardedAccumulator:
             acc.add(keys, counts, n)
 
     def result(self):
-        """Per-slot (int64 keys, int64 counts, n) numpy arrays, the layout
-        of dist.shuffle.gather_global."""
-        D = len(self.slots)
+        """Per-slot (int64 keys, int64 counts, n) numpy arrays of all D
+        global slots, the layout of dist.shuffle.gather_global."""
+        multi = self.mesh is not None and self.mesh.multi
+        D = self.mesh.size if multi else len(self.slots)
         entries = [acc.final() for acc in self.slots]
         if entries[0] is None:      # add() fills every slot, or none
             z = np.zeros(0, np.int64)
             return [z] * D, [z] * D, [0] * D
         dev0 = entries[0][2].device
         stats = torch.stack([torch.stack([acc.overflow, e[2]]).to(dev0)
-                             for acc, e in zip(self.slots, entries)]).tolist()
+                             for acc, e in zip(self.slots, entries)])
+        if multi:
+            stats = self.mesh.allgather(stats)
+        stats = stats.tolist()
         for d, (overflow, _) in enumerate(stats):
             if overflow > 0:
                 raise CapacityError(
@@ -173,7 +182,16 @@ class ShardedAccumulator:
                     f"unique-key capacity by {overflow} (shard {d}); rerun "
                     f"with a larger --merge-capacity")
         ns = [n for _, n in stats]
-        host = to_host([e[0][:n] for e, n in zip(entries, ns)]
-                        + [e[1][:n] for e, n in zip(entries, ns)])
-        host = [t.numpy() for t in host]
+        if multi:   # the local dense prefixes, gathered on the device
+            local = ns[self.mesh.first:self.mesh.first + len(entries)]
+            parts = [self.mesh.allgather(torch.cat([e[i][:n] for e, n in
+                                                    zip(entries, local)]))
+                     for i in (0, 1)]
+        else:
+            parts = ([e[0][:n] for e, n in zip(entries, ns)]
+                     + [e[1][:n] for e, n in zip(entries, ns)])
+        host = [t.numpy() for t in to_host(parts)]
+        if multi:
+            cuts = np.cumsum(ns)[:-1]
+            host = np.split(host[0], cuts) + np.split(host[1], cuts)
         return host[:D], host[D:], ns

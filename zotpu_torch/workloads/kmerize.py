@@ -14,11 +14,13 @@ On CUDA each batch is copied from pinned host memory on a side stream with
 ``non_blocking=True``, and the copy starts before the previous batch's
 merges are enqueued, so the two overlap.
 
-``kmerize_paths_sharded`` ports the single-controller sharded path
-(``kmerize_paths_sharded`` in accumulator mode): each batch's rows split
+``kmerize_paths_sharded`` ports the sharded path: each batch's rows split
 over the mesh's slots, the sharded step (dist/shuffle.py) routes every
 k-mer to its owner slot, and each slot's runs merge in its own LSM
-accumulator (``ShardedAccumulator``).
+accumulator (``ShardedAccumulator``). In a multi-controller run (a process
+group exists, dist/mesh.py) each process parses only its own files into
+its own slots' rows, and the steps run in lockstep across the processes
+(``_iter_global_batches``).
 
 With ``spill_dir`` each batch's run crosses to the host (a plain copy of
 its dense prefix) and is written as ``run{batch:06d}.zkf`` with a layout
@@ -27,8 +29,8 @@ stamp matches and recomputes the rest; the end is ``merge_runs`` over all
 runs (the host's golden merge below ``DEVICE_MERGE_THRESHOLD`` keys, the K3
 merge tree of workloads/setops.py at or above it). File names, keys, counts
 and stamps are the JAX package's, so either package resumes a directory the
-other left. Multi-controller runs (and their per-host ``.pN`` run files)
-are not yet ported.
+other left. A multi-controller process writes its own slots' rows of a
+batch as ``run{batch:06d}.p{process}.zkf``.
 """
 
 from __future__ import annotations
@@ -45,7 +47,7 @@ from zotpu_torch import keys as K
 from zotpu_torch.io import container, fastq, wire
 from zotpu_torch.io.prefetch import prefetch, prefetch_many
 from zotpu_torch.dist import shuffle
-from zotpu_torch.dist.mesh import make_mesh
+from zotpu_torch.dist.mesh import make_mesh, multi_controller, process_mesh
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.kernels.sortdedup import kmer_sort_dedup
 from zotpu_torch.reference_impl import golden as G
@@ -159,9 +161,13 @@ class SlotUploads:
 
 
 def sharded_mesh(n_shards: int, device="cuda", devices=None):
-    """The mesh of a sharded run: ``devices`` as given (several slots may
-    share a card), else n_shards slots of ``device``; more slots than
-    visible cards raise as the JAX package does."""
+    """The mesh of a sharded run: in a multi-controller run n_shards
+    global slots over the processes (``process_mesh`` on ``device``);
+    otherwise ``devices`` as given (several slots may share a card), else
+    n_shards slots of ``device``; more slots than visible cards raise as the
+    JAX package does."""
+    if multi_controller():
+        return process_mesh(n_shards, device)
     if devices is None and torch.device(device).type == "cuda":
         n_dev = torch.cuda.device_count()
         if n_shards > n_dev:
@@ -223,6 +229,45 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
     for batch, host, n_rec in prefetch(all_batches(), depth=2):
         account(batch, n_rec)
         yield host
+
+
+def padding_host(rows: int, max_len: int, wire_pack: bool, pin: bool):
+    """The host tensors of an all-padding batch (INVALID codes, zero
+    lengths; in the wire form too): what a drained process feeds."""
+    return host_tensors(fastq.CodeBatch(
+        codes=np.full((rows, max_len), S.INVALID_CODE, np.uint8),
+        lengths=np.zeros(rows, np.int32), n_reads=0), wire_pack, pin)
+
+
+def lockstep(mesh, items, pad):
+    """``items`` as they come, in step with the other processes of a
+    multi-controller mesh: a process whose items run out yields ``pad``
+    until every process is drained. One reduction a batch decides it, so
+    every process takes the same number of (collective) steps."""
+    if not mesh.multi:
+        yield from items
+        return
+    it = iter(items)
+    flag = torch.zeros((), dtype=torch.int64, device=mesh.devices[0])
+    while True:
+        item = next(it, None)
+        if not int(mesh.allreduce(flag + (item is not None), "max")):
+            return
+        yield pad if item is None else item
+
+
+def _iter_global_batches(paths, mesh, reads_per_chip, max_len, k, stats,
+                         wire_pack=False, pin=False, parallel=False):
+    """Batch stream of the sharded step (``kmerize._iter_global_batches``):
+    host tensors of this process's slots' rows, reads_per_chip a slot.
+    In a multi-controller run each process parses ONLY its own files
+    (``paths``), and a drained process feeds all-padding rows until every
+    process is drained."""
+    rows = reads_per_chip * len(mesh.devices)
+    return lockstep(mesh, _iter_batches(
+        paths, rows, max_len, k, stats, wire_pack=wire_pack, pin=pin,
+        parallel=parallel), padding_host(rows, max_len, wire_pack, pin)
+        if mesh.multi else None)
 
 
 _STAMP_KEYS = ("k", "batch_reads", "max_len", "process_count",
@@ -389,19 +434,32 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
     end. The slots are ``devices`` when given (several may name one card),
     else n_shards slots of ``device``.
 
-    With ``spill_dir`` each batch's globally gathered run is written as a
-    ZKF checkpoint instead (a transfer a batch by design, the contract of
-    the single-device spill path); ``resume=True`` re-reads completed runs,
-    and without a ``spill_dir`` does nothing, as in the JAX package.
+    In a multi-controller run (dist/mesh.py) n_shards is the global slot
+    count, ``paths`` are this process's own files, and every process
+    returns the global result. ``stats.reads`` and ``stats.bases`` are
+    summed over the processes; ``stats.batches`` counts this process's
+    parsed batches, as in the JAX package.
+
+    With ``spill_dir`` each batch's run is written as a ZKF checkpoint
+    instead (a transfer a batch by design, the contract of the
+    single-device spill path): the globally gathered run, or in a
+    multi-controller run this process's slots' rows as
+    ``run{batch:06d}.p{process}.zkf``. ``resume=True`` re-reads completed
+    runs (a batch is skipped only when EVERY process still has its valid
+    file: steps are collective), and without a ``spill_dir`` does nothing,
+    as in the JAX package. A multi-controller process merges its own runs
+    on the host, then the disjoint process sets are gathered.
     Routing overflow raises ValueError: checked once, at the end (a
     device-side counter), in accumulator mode, and batch by batch in spill
-    mode. ``fail_after_batches`` is the tests' fault-injection hook.
-    ``force_second_round`` is the step's flag
-    (dist/shuffle.make_kmerize_step)."""
+    mode, each time on the total over every slot. ``fail_after_batches``
+    is the tests' fault-injection hook. ``force_second_round`` is the
+    step's flag (dist/shuffle.make_kmerize_step)."""
     S.check_k(k)
     stats = stats if stats is not None else Stats()
     stats.n_chips = n_shards
     mesh = sharded_mesh(n_shards, device, devices)
+    multi = mesh.multi
+    L = len(mesh.devices)
     dev0 = mesh.devices[0]
     reads_per_chip = max(batch_reads // n_shards, 1)
     wire_pack = max_len % 32 == 0
@@ -410,29 +468,36 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
         mesh, k, reads_per_chip, max_len, capacity_factor=capacity_factor,
         wire=wire_pack, shard_hash=shard_hash,
         force_second_round=force_second_round)
-    acc = ShardedAccumulator(mesh.devices, cap_out, max_cap=merge_capacity)
+    acc = ShardedAccumulator(mesh.devices, cap_out, max_cap=merge_capacity,
+                             mesh=mesh)
     uploads = SlotUploads(mesh, reads_per_chip)
     pin = any(d.type == "cuda" for d in mesh.devices)
     overflow = routed = pending = None
     runs: list[tuple[np.ndarray, np.ndarray]] = []
     batch_no = 0
+    # prefix-sharded process sets concatenate sorted only in this layout
+    reorder = shard_hash == "mixed" or not shuffle.hosts_prefix_ordered(mesh)
     # a run file covers the reads of one batch under this slot layout
-    stamp = {"k": k, "process_count": 1, "process_index": 0,
-             "n_shards": n_shards, "batch_reads": batch_reads,
-             "max_len": max_len, "shard_hash": shard_hash}
+    stamp = {"k": k, "process_count": mesh.process_count,
+             "process_index": mesh.process_index, "n_shards": n_shards,
+             "batch_reads": batch_reads, "max_len": max_len,
+             "shard_hash": shard_hash}
+    suffix = f".p{mesh.process_index}" if multi else ""
 
     def add(total, xs):
         return xs if total is None else [a + b for a, b in zip(total, xs)]
 
-    for host in _iter_batches(paths, reads_per_chip * n_shards, max_len, k,
-                              stats, wire_pack=wire_pack, pin=pin,
-                              parallel=use_acc):
+    for host in _iter_global_batches(paths, mesh, reads_per_chip, max_len,
+                                     k, stats, wire_pack=wire_pack, pin=pin,
+                                     parallel=use_acc):
         batch_no += 1
-        run_path = (os.path.join(spill_dir, f"run{batch_no:06d}.zkf")
+        run_path = (os.path.join(spill_dir, f"run{batch_no:06d}{suffix}.zkf")
                     if spill_dir is not None else None)
         if resume and run_path:
             ks = _load_run_if_valid(run_path, stamp)
-            if ks is not None:
+            have = torch.tensor(ks is not None, dtype=torch.int64,
+                                device=dev0)
+            if int(mesh.allreduce(have, "min")):
                 stats.kmers += int(ks.counts.sum(dtype=np.uint64))
                 runs.append((ks.keys, ks.counts))
                 continue
@@ -450,18 +515,17 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
             continue
         # spill mode: the overflow check and the run's sizes cost one host
         # sync a batch, by design
-        vals = torch.stack([x.to(dev0) for o in out for x in (o[3], o[2])]
-                           ).tolist()
-        if sum(vals[0::2]) > 0:
+        vals = torch.stack([mesh.psum([o[3] for o in out])[0].to(dev0)]
+                           + [o[2].to(dev0) for o in out]).tolist()
+        if vals[0] > 0:
             raise ValueError(
                 "all-to-all bucket overflow: raise capacity_factor")
-        ns = vals[1::2]
+        ns = vals[1:]
         parts = [t.numpy() for t in to_host(
             [o[0][:n] for o, n in zip(out, ns)]
             + [o[1][:n] for o, n in zip(out, ns)])]
-        keys, cnts = shuffle.gather_global(
-            parts[:n_shards], parts[n_shards:], ns,
-            reorder=shard_hash == "mixed")
+        keys, cnts = shuffle.gather_local_rows(
+            parts[:L], parts[L:], ns, reorder=shard_hash == "mixed")
         stats.kmers += int(cnts.sum(dtype=np.uint64))
         _write_run(run_path, k, keys, cnts, batch_no, stamp)
         runs.append((keys, cnts))
@@ -469,19 +533,32 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
         acc.add(pending)
     stats.second_rounds = step.second_rounds
     if routed is not None:
-        vals = torch.stack([x.to(dev0) for x in routed + (overflow or [])]
-                           ).tolist()
+        total = mesh.psum(overflow or [torch.zeros((), dtype=torch.int64,
+                                                   device=dev0)])[0]
+        vals = torch.cat([mesh.allgather(torch.stack([x.to(dev0)
+                                                      for x in routed])),
+                          total.to(dev0).reshape(1)]).tolist()
         stats.routed_per_shard = vals[:n_shards]
-        if sum(vals[n_shards:]) > 0:
+        if vals[n_shards] > 0:
             raise ValueError("all-to-all bucket overflow (deferred): raise "
                              "capacity_factor")
     if not use_acc:
-        keys, counts = merge_runs(runs, device=dev0)
+        # a process merges its own runs on the host, then the disjoint
+        # process sets are gathered
+        keys, counts = merge_runs(runs, force_host=multi, device=dev0)
+        if multi:
+            keys, counts = shuffle.allgather_host_sets(mesh, keys, counts,
+                                                       reorder=reorder)
+            stats.kmers = int(counts.sum(dtype=np.uint64))
     elif overflow is None:
         keys, counts = np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
     else:
         keys, counts = shuffle.gather_global(
             *acc.result(), reorder=shard_hash == "mixed")
         stats.kmers = int(counts.sum(dtype=np.uint64))
+    if multi:   # reads and bases were counted per process
+        stats.reads, stats.bases = mesh.allreduce(torch.tensor(
+            [stats.reads, stats.bases], dtype=torch.int64,
+            device=dev0)).tolist()
     stats.unique = len(keys)
     return keys, counts

@@ -13,11 +13,13 @@ pinned host memory on a side stream (as in workloads/kmerize.py), and its
 row hits come down into pinned memory behind an event; the host aggregates
 batch i-1 while the card works on batch i.
 
-``pulldown_paths_sharded`` ports the single-controller hash-sharded scan:
-the panel is partitioned over the mesh's slots by the same owner function
-as the routing, read k-mers route to their owner slot carrying their
-global read-row id, and per-row hits sum over slots (dist/shuffle.py
-``make_pulldown_step``). The multi-controller form is not yet ported.
+``pulldown_paths_sharded`` ports the hash-sharded scan: the panel is
+partitioned over the mesh's slots by the same owner function as the
+routing, read k-mers route to their owner slot carrying their global
+read-row id, and per-row hits sum over slots (dist/shuffle.py
+``make_pulldown_step``). In a multi-controller run (``_pulldown_sharded_
+multihost`` of the JAX package) samples go round-robin to the processes,
+each fills its own slots' rows, and the steps run in lockstep.
 """
 
 from __future__ import annotations
@@ -32,7 +34,8 @@ from zotpu_torch.kernels.join import row_hits_sorted_join
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.keys import SENTINEL
 from zotpu_torch.workloads.kmerize import (SlotUploads, await_upload,
-                                           host_tensors, sharded_mesh,
+                                           host_tensors, lockstep,
+                                           padding_host, sharded_mesh,
                                            upload)
 
 
@@ -162,45 +165,68 @@ def pulldown_paths_sharded(panel_keys: np.ndarray, sample_paths: list[str],
     5): per-sample (total_hits, reads_with_hits, per_read_hits list), the
     same surface as pulldown_paths. The slots are ``devices`` when given
     (several may name one card), else n_shards slots of ``device``. A
-    routing overflow raises ValueError for the batch it happens in."""
+    routing overflow (the total over every slot) raises ValueError for the
+    batch it happens in.
+
+    In a multi-controller run process p reads samples[p::P] into its own
+    slots' rows, [row0, row0 + L * R) of the global batch, and a drained
+    process feeds all-padding rows until every process is drained; a step
+    may thus mix batches of different samples, which is sound because row
+    ids are global, the per-row hits are summed over every slot, and each
+    process aggregates only its own rows. Every process returns every
+    sample's summary (gathered by max over an array that starts at -1),
+    but per-read vectors only for its own samples (None for the others)."""
     mesh = sharded_mesh(n_shards, device, devices)
     reads_per_chip = max(batch_reads // n_shards, 1)
+    rows = reads_per_chip * len(mesh.devices)
+    row0 = mesh.first * reads_per_chip
     wire_pack = max_len % 32 == 0
-    rows, _ = shuffle.partition_panel(panel_keys, k, n_shards,
+    prow, _ = shuffle.partition_panel(panel_keys, k, n_shards,
                                       shard_hash=shard_hash)
-    panels = [torch.from_numpy(rows[d]).to(dev)
+    panels = [torch.from_numpy(prow[mesh.first + d]).to(dev)
               for d, dev in enumerate(mesh.devices)]
     step = shuffle.make_pulldown_step(mesh, k, reads_per_chip, max_len,
                                       capacity_factor=capacity_factor,
                                       wire=wire_pack, shard_hash=shard_hash)
     uploads = SlotUploads(mesh, reads_per_chip)
     pin = any(d.type == "cuda" for d in mesh.devices)
-    aggs = [RecordAggregator() for _ in sample_paths]
+    mine = range(mesh.process_index, len(sample_paths), mesh.process_count)
+    aggs = {idx: RecordAggregator() for idx in mine}
+    dev0 = mesh.devices[0]
     pending = None
 
     def finish(idx, batch, hits, overflow, done):
         if done is not None:
             done.synchronize()
-        if int(overflow.sum()) > 0:
+        if int(overflow) > 0:
             raise ValueError("all-to-all bucket overflow in scan: raise "
                              "capacity_factor")
-        n = batch.n_reads
-        aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
+        if batch is not None:
+            n = batch.n_reads
+            aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
 
-    for idx, batch, host in _iter_scan_batches(
-            sample_paths, reads_per_chip * n_shards, max_len, k, wire_pack,
-            pin):
+    stream = _iter_scan_batches([sample_paths[i] for i in mine], rows,
+                                max_len, k, wire_pack, pin)
+    pad = ((None, None, padding_host(rows, max_len, wire_pack, pin))
+           if mesh.multi else None)
+    for j, batch, host in lockstep(mesh, stream, pad):
         slots = uploads.start(host)
         uploads.wait(slots)
         hits, overflow = step(slots, panels)
-        dev0 = mesh.devices[0]
-        both = torch.cat([hits[0].to(torch.int64),
-                          torch.stack([o.to(dev0) for o in overflow])])
+        both = torch.cat([hits[0][row0:row0 + rows].to(torch.int64),
+                          mesh.psum(overflow)[0].to(dev0).reshape(1)])
         both, done = _download(both)
         if pending is not None:
             finish(*pending)
-        R = hits[0].shape[0]
-        pending = (idx, batch, both[:R], both[R:], done)
+        pending = (None if j is None else mine[j], batch, both[:rows],
+                   both[rows], done)
     if pending is not None:
         finish(*pending)
-    return [agg.result() for agg in aggs]
+    stat = torch.full((len(sample_paths), 2), -1, dtype=torch.int64)
+    per_read = {}
+    for idx, agg in aggs.items():
+        tot, rwh, per_read[idx] = agg.result()
+        stat[idx] = torch.tensor([tot, rwh])
+    stat = mesh.allreduce(stat.to(dev0), "max").tolist()
+    return [(tot, rwh, per_read.get(idx))
+            for idx, (tot, rwh) in enumerate(stat)]

@@ -12,13 +12,15 @@ and ``_pow2_cap`` (a slot's row is as long as its slice). The sort-based
 ``kernels/setops.cardinalities`` is one K3 ``intersect`` launch here, and
 only its ``n_out`` crosses to the host.
 
-The sharded forms run on the single-controller mesh (dist/mesh.py): both
-inputs are sorted, so key-prefix sharding is a contiguous slice per slot;
-slot d runs K3 on its slice of both sets on its own device, the outputs
-concatenate already globally sorted, and the cardinalities come from the
-summed |A|, |B| and n_out, read with one transfer. The multi-controller
-form of ``set_op_sharded_stream`` (``shuffle.gather_local_rows``) is not
-ported.
+The sharded forms run on a mesh of slots (dist/mesh.py): both inputs are
+sorted, so key-prefix sharding is a contiguous slice per slot; slot d runs
+K3 on its slice of both sets on its own device, the outputs concatenate
+already globally sorted, and the cardinalities come from the summed |A|,
+|B| and n_out, read with one transfer. In a multi-controller run
+``set_op_sharded_stream`` builds only this process's slots' rows from the
+shared files, sums the cardinalities over the processes and returns this
+process's rows; the caller gathers the process sets
+(``shuffle.allgather_host_sets``).
 """
 
 from __future__ import annotations
@@ -162,19 +164,21 @@ def _partition_cached(keys, counts, k: int, mesh, cache):
     return hit[2]
 
 
-def _run_slots(rows_a, rows_b, op: str, gather: bool):
-    """K3 per slot on its rows of both sets; the per-slot n_out and the
-    summed |A| and |B| cross to the host in one transfer."""
+def _run_slots(mesh, rows_a, rows_b, op: str, gather: bool):
+    """K3 per local slot on its rows of both sets; the per-slot n_out and
+    the |A|, |B| and n_out summed over every slot of the mesh cross to the
+    host in one transfer."""
     outs = [set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb)
             for (ka, ca, na), (kb, cb, nb) in zip(rows_a, rows_b)]
     dev0 = outs[0][2].device
     on0 = lambda ts: torch.stack([t.to(dev0) for t in ts])
-    vals = torch.cat([on0([o[2] for o in outs]),
-                      on0([r[2] for r in rows_a]).sum(0, keepdim=True),
-                      on0([r[2] for r in rows_b]).sum(0, keepdim=True)]
-                     ).tolist()
-    ns, (na, nb) = vals[:-2], vals[-2:]
-    cards = _cards(na, nb, sum(ns), op)
+    ns = on0([o[2] for o in outs])
+    sums = mesh.allreduce(torch.stack([on0([r[2] for r in rows_a]).sum(),
+                                       on0([r[2] for r in rows_b]).sum(),
+                                       ns.sum()]))
+    vals = torch.cat([ns, sums]).tolist()
+    ns, (na, nb, n_out) = vals[:-3], vals[-3:]
+    cards = _cards(na, nb, n_out, op)
     if not gather:
         return None, None, cards
     keys, counts = _download([(k, c, n) for (k, c, _), n in zip(outs, ns)])
@@ -202,7 +206,7 @@ def set_op_sharded(a: tuple[np.ndarray, np.ndarray],
     mesh = sharded_mesh(n_shards, device, devices)
     rows_a = _partition_cached(a[0], a[1], k, mesh, cache)
     rows_b = _partition_cached(b[0], b[1], k, mesh, cache)
-    return _run_slots(rows_a, rows_b, op, gather)
+    return _run_slots(mesh, rows_a, rows_b, op, gather)
 
 
 def jaccard_sharded(a_keys: np.ndarray, b_keys: np.ndarray, k: int,
@@ -219,19 +223,21 @@ def jaccard_sharded(a_keys: np.ndarray, b_keys: np.ndarray, k: int,
 
 def set_op_sharded_stream(path_a: str, path_b: str, op: str, n_shards: int,
                           chunk: int = 1 << 22, device="cuda", devices=None):
-    """Sharded set op streamed straight from two container files (single
-    controller).
+    """Sharded set op streamed straight from two container files.
 
     Two streaming passes per input (O(chunk) host memory each): pass 1
     counts per-slot rows by searchsorted on the key-prefix edges; pass 2
     fills ONE slot's row at a time and uploads it to its device when
     complete. The inputs are sorted, so slots complete in order and at
     most one partial row buffer is live. Peak host memory is O(largest row
-    + chunk) per input, not O(set).
+    + chunk) per input, not O(set). In a multi-controller run every
+    process reads both files and builds only its own slots' rows.
 
-    Returns (k, keys, counts, cards): the full sorted result and the
-    summed cardinalities."""
+    Returns (k, keys, counts, cards): this process's slots' rows in slot
+    order (the full sorted result under a single controller) and the
+    cardinalities summed over every slot."""
     mesh = sharded_mesh(n_shards, device, devices)
+    local = range(mesh.first, mesh.first + len(mesh.devices))
 
     def sizes_of(path):
         r = container.ChunkReader(path)
@@ -247,7 +253,7 @@ def set_op_sharded_stream(path_a: str, path_b: str, op: str, n_shards: int,
         live = None             # (slot, keys buffer, counts buffer, cursor)
         for keys, counts in container.ChunkReader(path).chunks(chunk):
             b = _slot_bounds(keys, edges)
-            for d in range(n_shards):
+            for d in local:
                 m = int(b[d + 1] - b[d])
                 if m == 0:
                     continue
@@ -261,17 +267,18 @@ def set_op_sharded_stream(path_a: str, path_b: str, op: str, n_shards: int,
                     cbuf[cur:cur + m] = counts[b[d]:b[d + 1]]
                 live[3] = cur + m
                 if live[3] == sizes[d]:
-                    rows[d] = _upload(kbuf, cbuf, mesh.devices[d])
+                    rows[d] = _upload(kbuf, cbuf,
+                                      mesh.devices[d - local.start])
                     live = None
-        for d, dev in enumerate(mesh.devices):      # slots that saw no row
+        for d, dev in zip(local, mesh.devices):     # slots that saw no row
             if rows[d] is None:
                 rows[d] = _upload(np.empty(0, np.uint64), None, dev)
-        return rows
+        return rows[local.start:local.stop]
 
     ka, sa = sizes_of(path_a)
     kb, sb = sizes_of(path_b)
     if ka != kb:
         raise ValueError(f"K mismatch: {path_a} has k={ka}, {path_b} k={kb}")
-    keys, counts, cards = _run_slots(build(path_a, ka, sa),
+    keys, counts, cards = _run_slots(mesh, build(path_a, ka, sa),
                                      build(path_b, kb, sb), op, True)
     return ka, keys, counts, cards
