@@ -107,10 +107,22 @@ Phases (any failure exits non-zero; no exception is caught):
    run file per process and batch. Each call prints its wall time, the
    bytes that crossed processes, the backend and each process's launches
    of K1a, K3, K4 tagged, K5, K6 and K7, which must run. With two or more
-   cards the CLI itself also runs with one process per card on NCCL.
+   cards the CLI itself also runs with one process per card on NCCL;
+14. the performance harness at the CLI's defaults (full width: 2^26 bases,
+   2^24 keys a side, 2^17 reads against a 2^20-key panel), in processes
+   of its own: ``python -m zotpu_torch bench --workload all``, then
+   ``--workload setops-sort`` (which ``all`` leaves out, as the JAX
+   harness does): every line parses, all twelve workloads appear, every
+   number is finite and above 0, each record names this card and reports
+   the kernels its workload must launch, the scan and its shard model
+   count the same hits, the forced second round costs more than 0 and the
+   load sweep has five points; then ``python -m zotpu_torch.bench.micro
+   24``, whose six rows must print with their times and which must launch
+   K1b and K2. Every record is printed, with the phase's seconds.
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
-one JSON object with every kernel's launches, error, times and bound.
+one JSON object with every kernel's launches (on the paths of phases 3-13,
+and in phase 14's bench as ``bench_launches``), error, times and bound.
 The script imports nothing of the JAX package ``zotpu``: it runs from a
 tree that holds ``chip_smoke.py`` and ``zotpu_torch/`` alone.
 """
@@ -183,6 +195,31 @@ METRICS_KEYS = {"ts", "host", "event", "bases_per_s", "kmers_per_s_per_chip",
                 "n_chips"}
 # device functions of the kmerize path in csrc/: K1a, K2, K3
 TRACE_KERNELS = ("pack_wire_kernel", "dedup_kernel", "setop_kernel")
+# phase 14: each bench workload, as (record name, impl), and the kernels it
+# must launch at the CLI's defaults (scaling: its D = 1 row's)
+BENCH_KERNELS = {
+    ("kmerize", None): ("pack_canonical_wire", "dedup_compact"),
+    ("setops_merge", "auto"): ("set_op_fused",),
+    ("setops_merge", "sort"): ("dedup_compact",),
+    ("scan", None): ("pack_canonical_wire", "join_row_hits"),
+    ("scan_shard_model", None): ("pack_canonical_wire",
+                                 "join_row_hits_tagged",
+                                 "merge_runs_payload"),
+    ("setops_shard_model", None): ("set_op_fused",),
+    ("kmerize_scaling", None): ("pack_canonical", "dedup_compact"),
+    ("kmerize_shard_model", None): ("pack_canonical_wire", "dedup_compact",
+                                    "merge_runs", "merge_dedup",
+                                    "set_op_fused"),
+    ("kmerize_shard_sensitivity", None): ("pack_canonical_wire",
+                                          "merge_dedup"),
+    ("kmerize_sustained", None): ("pack_canonical_wire", "dedup_compact",
+                                  "set_op_fused"),
+    ("host_parse_gz", None): (),
+    ("kmerize_e2e", None): ("pack_canonical_wire", "dedup_compact",
+                            "set_op_fused"),
+}
+MICRO_ROWS = ("pack", "sort_i64", "sort+dedup", "scatter", "gather",
+              "cumsum_i32")
 
 
 def check(cond, what):
@@ -1794,6 +1831,106 @@ def phase_multi(torch, fx, tmp, scan_lines, per_read):
     return result
 
 
+def run_module(argv, timeout):
+    """python ARGV in a process of its own, from this script's directory;
+    fails unless it exits 0. Returns its stdout lines."""
+    res = subprocess.run([sys.executable, *argv], capture_output=True,
+                         text=True, timeout=timeout,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(res.returncode == 0, f"python {' '.join(argv)} exited "
+          f"{res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return res.stdout.strip().splitlines()
+
+
+def positive_numbers(rec, where):
+    """Every number of a bench record (and of its load sweep's points) is
+    finite and above 0; genome_bases may be null (uniform fixture)."""
+    for key, v in rec.items():
+        if key == "load_sweep":
+            for point in v:
+                positive_numbers(point, f"{where} load point")
+        elif isinstance(v, (int, float)) and not isinstance(v, bool):
+            check(np.isfinite(v) and v > 0, f"{where}: {key} = {v}")
+        else:
+            check(key in ("workload", "impl", "fixture", "device",
+                          "launches", "dense_dedup")
+                  or (key == "genome_bases" and v is None),
+                  f"{where}: {key} = {v!r}")
+
+
+def phase_bench(torch):
+    """Phase 14: ``python -m zotpu_torch bench`` at the CLI's defaults and
+    the micro-benchmarks, each in a process of its own on this card.
+    Returns the launches of every kernel over the phase."""
+    say("phase 14: python -m zotpu_torch bench --workload all, then "
+        "--workload setops-sort, at the CLI's defaults; then "
+        "python -m zotpu_torch.bench.micro 24")
+    torch.cuda.empty_cache()
+    lines, seconds = [], {}
+    for workload in ("all", "setops-sort"):
+        t0 = time.perf_counter()
+        lines += run_module(["-m", "zotpu_torch", "bench", "--workload",
+                             workload], timeout=800)
+        seconds[workload] = time.perf_counter() - t0
+    recs = []
+    for line in lines:
+        try:
+            recs.append(json.loads(line))
+        except json.JSONDecodeError:
+            check(False, f"a bench line that does not parse: {line!r}")
+        say(f"  bench {line}")
+    card = torch.cuda.get_device_name(0)
+    by_name = {}
+    for r in recs:
+        name = (r["workload"], r.get("impl"))
+        by_name.setdefault(name, []).append(r)
+        check(r["device"] == card, f"{name} names {r['device']!r}, not "
+              f"the card {card!r}")
+        positive_numbers(r, str(name))
+        want = set(BENCH_KERNELS.get(name, ()))
+        check(want <= set(r["launches"]), f"{name} launched "
+              f"{sorted(r['launches'])}, not all of {sorted(want)}")
+    check(set(by_name) == set(BENCH_KERNELS),
+          f"the bench's workloads {sorted(map(str, by_name))} are the "
+          f"twelve of BENCH_KERNELS")
+    check(all(len(rs) == 1 for name, rs in by_name.items()
+              if name[0] != "kmerize_scaling"),
+          "one record a workload (scaling: one a mesh size)")
+    (scan,), (sscan,) = by_name[("scan", None)], by_name[
+        ("scan_shard_model", None)]
+    check(scan["total_hits"] == sscan["total_hits"],
+          f"scan counts {scan['total_hits']} hits, its shard model "
+          f"{sscan['total_hits']}")
+    (sens,) = by_name[("kmerize_shard_sensitivity", None)]
+    check(sens["second_round_overhead"] > 0
+          and len(sens["load_sweep"]) == 5,
+          "the forced second round costs more than 0; five sweep points")
+    t1 = time.perf_counter()
+    micro = run_module(["-m", "zotpu_torch.bench.micro", "24"], timeout=300)
+    t_micro = time.perf_counter() - t1
+    for line in micro:
+        say(f"  micro {line}")
+    summary = json.loads(micro[-1])
+    check(list(summary["ms"]) == list(MICRO_ROWS)
+          and all(np.isfinite(v) and v > 0 for v in summary["ms"].values())
+          and all(any(line.split()[:1] == [row] for line in micro)
+                  for row in MICRO_ROWS),
+          f"the micro-benchmark's six rows printed: {summary}")
+    check({"pack_canonical", "dedup_compact"} <= set(summary["launches"]),
+          f"micro launched K1b and K2: {summary['launches']}")
+    launches = dict.fromkeys(KERNEL_INFO, 0)
+    for rs in by_name.values():
+        for kernel, n in rs[0]["launches"].items():
+            launches[kernel] += n
+    for kernel, n in summary["launches"].items():
+        launches[kernel] += n
+    say(f"  seconds of the processes: bench --workload all "
+        f"{seconds['all']:.1f}, --workload setops-sort "
+        f"{seconds['setops-sort']:.1f}, micro {t_micro:.1f}; launches in "
+        f"all {json.dumps(launches)}; {card_line()}")
+    return launches
+
+
 def phase_multi_nccl(fx, tmp, P):
     """Phase 13 with two or more cards: the CLI itself, one process per
     card (``python -m zotpu_torch ... --process-id I``, NCCL, --shards P)."""
@@ -1876,6 +2013,7 @@ def main() -> int:
         spill_launches, spill = phase_spill(torch, dev, fx, tmp)
         spectrum = phase_spectrum(torch, tmp)
         multi = phase_multi(torch, fx, tmp, scan_lines, per_read)
+    bench_launches = phase_bench(torch)
     op_launches["merge"] += merge["set_op_fused"]
     by_path = {"kmerize": launches["set_op_fused"], **op_launches,
                "spill": spill_launches["set_op_fused"]}
@@ -1898,6 +2036,7 @@ def main() -> int:
     say(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
+         "bench_launches": bench_launches[name],
          **rows[name]} for name in KERNEL_INFO] + [
         # K3 again, at the set-op bench size: the launches are those of
         # the op's own path (merge: phases 9 and 10; the others: phase 10)

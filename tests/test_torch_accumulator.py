@@ -42,7 +42,7 @@ def _dense_hi_lo(keys, counts):
 
 
 def _port(runs, max_cap=1 << 26):
-    acc = TA.DeviceAccumulator(CAP, max_cap=max_cap)
+    acc = TA.DeviceAccumulator(CAP, max_cap=max_cap, device="cpu")
     for keys, counts in runs:
         k, c = K.from_hi_lo(*_dense_hi_lo(keys, counts))
         acc.add(k, c, torch.tensor(len(keys)))
@@ -84,7 +84,7 @@ def test_capacity_error_parity():
 
 
 def test_accumulator_pads_short_runs_and_rejects_long_ones():
-    acc = TA.DeviceAccumulator(8)
+    acc = TA.DeviceAccumulator(8, device="cpu")
     acc.add(torch.tensor([3, 5]), torch.tensor([1, 2]), torch.tensor(2))
     acc.add(torch.tensor([5, 9, K.SENTINEL]), torch.tensor([4, 1, 0]),
             torch.tensor(2))
@@ -96,7 +96,7 @@ def test_accumulator_pads_short_runs_and_rejects_long_ones():
 
 
 def test_accumulator_empty_result():
-    keys, counts = TA.DeviceAccumulator(8).result()
+    keys, counts = TA.DeviceAccumulator(8, device="cpu").result()
     assert keys.dtype == np.uint64 and counts.dtype == np.uint32
     assert len(keys) == 0 and len(counts) == 0
 
@@ -104,7 +104,7 @@ def test_accumulator_empty_result():
 def test_merge_truncates_only_at_the_clamp():
     """Below max_cap a merge keeps len(A) + len(B); at the clamp it is cut
     to max_cap (a view) and overflow counts what was lost."""
-    acc = TA.DeviceAccumulator(4, max_cap=6)
+    acc = TA.DeviceAccumulator(4, max_cap=6, device="cpu")
     a = (torch.tensor([1, 2, 3, 4]), torch.ones(4, dtype=torch.int64),
          torch.tensor(4))
     b = (torch.tensor([5, 6, 7, 8]), torch.ones(4, dtype=torch.int64),

@@ -765,3 +765,40 @@ def test_selftest_on_card_slots(dev):
     assert summary["checks"] == 13 and "partial" not in summary
     assert summary["device"] == str(dev)
     assert all(n > 0 for name, n in run.items() if name != "pack_canonical")
+
+
+def test_bench_workloads_on_card_match_cpu(dev, capsys):
+    """Each of the 12 bench workloads at a tiny size on the card: every
+    record names the card, every workload but the host-only parse
+    launches kernels, the counts that do not depend on time equal the
+    same call on the CPU, and the scan and its shard model count the same
+    hits."""
+    from types import SimpleNamespace
+
+    from zotpu_torch.bench import harness
+
+    def records(device, workload):
+        assert harness.run(SimpleNamespace(
+            workload=workload, device=device, bases=1 << 16, k=15,
+            repeats=1, setops_n=1 << 12, scan_reads=1 << 8,
+            scan_panel=1 << 10)) == 0
+        return [json.loads(line)
+                for line in capsys.readouterr().out.splitlines()]
+
+    card = torch.cuda.get_device_name(dev)
+    hits = {}
+    for workload in harness.WORKLOADS:
+        on_card, on_cpu = records(dev, workload), records("cpu", workload)
+        assert on_card and all(r["device"] == card for r in on_card)
+        assert all(bool(r["launches"]) == (workload != "parse")
+                   for r in on_card), (workload, on_card[0]["launches"])
+        cpu_rows = {r.get("devices"): r for r in on_cpu}
+        for r in on_card:
+            want = cpu_rows.get(r.get("devices"))
+            if want is None:        # scaling rows beyond the CPU's one slot
+                continue
+            for key in harness.COUNT_KEYS:
+                assert r.get(key) == want.get(key), (workload, key)
+        if workload in ("scan", "scan-shard-model"):
+            hits[workload] = on_card[0]["total_hits"]
+    assert hits["scan"] == hits["scan-shard-model"] > 0

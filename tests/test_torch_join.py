@@ -30,8 +30,9 @@ def _probes_torch(q):
 
 
 def _port(panel_keys, q, n_rows, m):
-    return TJ.row_hits_sorted_join(TPD.panel_to_device(panel_keys),
-                                   _probes_torch(q), n_rows, m).numpy()
+    panel = TPD.panel_to_device(panel_keys, device="cpu")
+    return TJ.row_hits_sorted_join(panel, _probes_torch(q), n_rows,
+                                   m).numpy()
 
 
 def _jax_xla(panel_keys, q, n_rows, m):
@@ -178,7 +179,7 @@ def test_scan_batch_matches_golden_and_jax(k, n_reads, read_len):
         codes[i, :len(s)] = G.encode(s)
     lengths = np.asarray([len(s) for s in seqs], np.int32)
     got = TPD.scan_batch(torch.from_numpy(codes), torch.from_numpy(lengths),
-                         TPD.panel_to_device(panel), k).numpy()
+                         TPD.panel_to_device(panel, device="cpu"), k).numpy()
     assert np.array_equal(got, G.scan_panel(k, panel, seqs))
     phi, plo = JPD.panel_to_device(panel)
     assert np.array_equal(got, np.asarray(JPD.scan_batch(
@@ -186,7 +187,8 @@ def test_scan_batch_matches_golden_and_jax(k, n_reads, read_len):
 
 
 def test_join_errors():
-    panel = TPD.panel_to_device(np.arange(5, dtype=np.uint64))
+    panel = TPD.panel_to_device(np.arange(5, dtype=np.uint64),
+                                device="cpu")
     probes = torch.zeros(12, dtype=torch.int64)
     with pytest.raises(ValueError, match="query length 12 != 5 x 2"):
         TJ.row_hits_sorted_join(panel, probes, 5, 2)

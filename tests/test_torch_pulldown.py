@@ -64,11 +64,12 @@ def test_record_aggregator_matches_jax(case):
 def test_panel_to_device_matches_jax(n):
     rng = np.random.default_rng(n)
     keys = np.unique(rng.integers(0, 1 << 62, n, dtype=np.uint64))[:n]
-    got = TPD.panel_to_device(keys)
+    got = TPD.panel_to_device(keys, device="cpu")
     hi, lo = JPD.panel_to_device(keys)
     assert torch.equal(got, K.from_hi_lo(np.asarray(hi), np.asarray(lo)))
     with pytest.raises(ValueError, match="2\\*\\*62"):
-        TPD.panel_to_device(np.asarray([1 << 62], np.uint64))
+        TPD.panel_to_device(np.asarray([1 << 62], np.uint64),
+                            device="cpu")
 
 
 @pytest.fixture(scope="module")

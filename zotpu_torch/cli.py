@@ -34,6 +34,9 @@
     python -m zotpu_torch verify A B
     python -m zotpu_torch casket ls|new|add|extract CASKET ...
     python -m zotpu_torch selftest [-k K] [--device cuda|cpu]
+    python -m zotpu_torch bench [--workload W] [--bases N] [--k K]
+        [--repeats N] [--setops-n N] [--scan-reads N] [--scan-panel N]
+        [--device cuda|cpu]
     python -m zotpu_torch -V
 
 Every command that writes a set writes the same ZKF container as its
@@ -53,6 +56,9 @@ byte-equal. ``kmerize --metrics FILE`` appends one JSONL line of stage
 metrics (rates, dedup ratio, counts; routing skew with ``--shards``), and
 ``--trace DIR`` writes a torch.profiler Chrome trace to DIR/trace.json
 (CUDA activity included on cuda, where a trace without it is an error).
+
+``bench`` runs the performance harness (bench/harness.py): one JSON line
+per workload, each with the device's name and the kernels it launched.
 
 ``kmerize --spill-dir DIR`` writes each batch's run as a checkpoint file
 and ``--resume`` reuses the completed ones; the directories are
@@ -788,6 +794,14 @@ def cmd_selftest(args):
     return run_selftest(k=args.k, device=_device(args.device))
 
 
+def cmd_bench(args):
+    """The performance harness on the card, or on the CPU with --device
+    cpu (plain versions: a check of the workloads, not a measurement)."""
+    from zotpu_torch.bench import harness
+    args.device = _device(args.device)
+    return harness.run(args)
+
+
 def build_parser() -> argparse.ArgumentParser:
     from zotpu_torch import __version__
     p = argparse.ArgumentParser(
@@ -1034,6 +1048,22 @@ def build_parser() -> argparse.ArgumentParser:
     sp.add_argument("-k", type=int, default=25, dest="k")
     device_flag(sp)
     sp.set_defaults(fn=cmd_selftest)
+
+    from zotpu_torch.bench.harness import WORKLOADS
+    sp = sub.add_parser("bench", help="performance harness")
+    sp.add_argument("--workload", default="kmerize",
+                    choices=[*WORKLOADS, "all"])
+    sp.add_argument("--bases", type=int, default=1 << 26)
+    sp.add_argument("--k", type=int, default=25)
+    sp.add_argument("--repeats", type=int, default=3)
+    sp.add_argument("--setops-n", type=int, default=None,
+                    help="keys per side for the setops workload")
+    sp.add_argument("--scan-reads", type=int, default=None,
+                    help="reads for the scan workload")
+    sp.add_argument("--scan-panel", type=int, default=None,
+                    help="panel size for the scan workload")
+    device_flag(sp)
+    sp.set_defaults(fn=cmd_bench)
     return p
 
 

@@ -24,7 +24,9 @@ COUNT_MAX = int(S.COUNT_MAX)
 
 def from_hi_lo(hi, lo, cnt=None, device="cpu"):
     """(hi, lo) u32 key words (and u32 counts) -> int64 tensors on device.
-    The (0xFFFFFFFF, 0xFFFFFFFF) sentinel becomes ``SENTINEL``."""
+    The (0xFFFFFFFF, 0xFFFFFFFF) sentinel becomes ``SENTINEL``. This
+    carries the JAX package's arrays across, mostly in tests, so it keeps
+    the CPU as its default device."""
     k = S.join_hi_lo(np.asarray(hi), np.asarray(lo))
     sent = k == S.SENTINEL_KEY
     if np.any(k[~sent] >= np.uint64(1 << 62)):
@@ -52,7 +54,8 @@ def from_numpy_set(keys, counts=None, device="cpu"):
     ``counts=None`` (a counts-less set) gives counts of one. The scan for
     the largest key is the input's validation and assumes no order: a key
     at or above 2**62 would be taken for padding, or sort before the others
-    as a negative int64."""
+    as a negative int64. It keeps the CPU as its default device, like
+    ``from_hi_lo``: callers that go to the card name it."""
     keys = np.ascontiguousarray(keys, np.uint64)
     if len(keys) and keys.max() >= np.uint64(1 << 62):
         raise ValueError("key >= 2**62 in a k-mer set")

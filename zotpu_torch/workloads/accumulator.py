@@ -33,7 +33,7 @@ class CapacityError(ValueError):
 
 class DeviceAccumulator:
     def __init__(self, batch_capacity: int, max_cap: int = 1 << 26,
-                 device="cpu"):
+                 device="cuda"):
         self.base_cap = batch_capacity
         self.max_cap = max(max_cap, self.base_cap)
         self.overflow = torch.zeros((), dtype=torch.int64, device=device)

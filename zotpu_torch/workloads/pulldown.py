@@ -53,9 +53,10 @@ def scan_batch_wire(packed, mask, lengths, panel, k: int):
     return row_hits_sorted_join(panel, keys, R, 16 * W - k + 1)
 
 
-def panel_to_device(keys: np.ndarray, device="cpu"):
-    """Sorted u64 panel keys -> int64 tensor on device, SENTINEL-padded to
-    the next power of two (at least 8)."""
+def panel_to_device(keys: np.ndarray, device="cuda"):
+    """Sorted u64 panel keys -> int64 tensor on device (the card unless
+    the caller names another), SENTINEL-padded to the next power of two
+    (at least 8)."""
     keys = np.asarray(keys, np.uint64)
     n = len(keys)
     cap = max(1 << (n - 1).bit_length(), 8) if n else 8
