@@ -108,6 +108,15 @@ Phases (any failure exits non-zero; no exception is caught):
    bytes that crossed processes, the backend and each process's launches
    of K1a, K3, K4 tagged, K5, K6 and K7, which must run. With two or more
    cards the CLI itself also runs with one process per card on NCCL;
+   then (13b) the entry points of ``zotpu_torch/entry.py``: ``entry()``'s
+   step on the card (K1b, ``torch.sort``, K2) against the same step on its
+   arguments moved to the CPU, and ``dryrun_multichip(4)`` over 4 slots
+   of this card (every multi-device path once on tiny shapes: K1a, K1b,
+   K3, K4 tagged, K5, K6 and K7 must each run) against golden and the
+   same call on 4 CPU slots; with four or more cards also over four
+   distinct cards, against the one-card run (with fewer, one line says it
+   ran on one card); one line with the wall times, the bytes sent and
+   the card;
 14. the performance harness at the CLI's defaults (full width: 2^26 bases,
    2^24 keys a side, 2^17 reads against a 2^20-key panel), in processes
    of its own: ``python -m zotpu_torch bench --workload all``, then
@@ -122,7 +131,8 @@ Phases (any failure exits non-zero; no exception is caught):
 
 The last line is ``{"ok": true, "device": {...}}``; the line before it is
 one JSON object with every kernel's launches (on the paths of phases 3-13,
-and in phase 14's bench as ``bench_launches``), error, times and bound.
+in phase 13b's entry points as ``entry_launches`` and in phase 14's bench
+as ``bench_launches``), error, times and bound.
 The script imports nothing of the JAX package ``zotpu``: it runs from a
 tree that holds ``chip_smoke.py`` and ``zotpu_torch/`` alone.
 """
@@ -139,6 +149,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import numpy as np
@@ -1654,7 +1665,10 @@ def run_processes(argvs, timeout):
     process still running at ``timeout`` seconds is killed (then every one
     is). Fails unless every process exits 0. Returns their outputs. They
     run from this script's directory (``-m zotpu_torch`` finds the port)
-    and share the host's cores between them."""
+    and share the host's cores between them. Each one's pipe is read from
+    its own thread while they run: a process whose exit waits for its
+    peers (NCCL's teardown does) would otherwise wait for a peer blocked on
+    a full pipe that is read only after the first has exited."""
     env = {**os.environ,
            "OMP_NUM_THREADS": str(max(1, (os.cpu_count() or 1) // len(argvs)))}
     procs = [subprocess.Popen([sys.executable, *map(str, a)], env=env,
@@ -1662,14 +1676,30 @@ def run_processes(argvs, timeout):
                               stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for a in argvs]
+    outs = [""] * len(procs)
+
+    def drain(i):
+        with procs[i].stdout as f:
+            outs[i] = f.read()
+
+    readers = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in readers:
+        t.start()
     try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
         for p in procs:
-            p.communicate()
+            p.wait()
         raise
+    finally:
+        for t in readers:
+            t.join(timeout=30)
+    check(not any(t.is_alive() for t in readers),
+          "every process's output was read to its end")
     for p, out in zip(procs, outs):
         check(p.returncode == 0, f"process {p.args} exited {p.returncode}:\n"
               f"{out[-4000:]}")
@@ -1829,6 +1859,107 @@ def phase_multi(torch, fx, tmp, scan_lines, per_read):
     if n >= 2:
         result["nccl"] = phase_multi_nccl(fx, tmp, 4 if n >= 4 else 2)
     return result
+
+
+def phase_entry(torch, dev):
+    """Phase 13b: the port's entry points (zotpu_torch/entry.py). ``entry()``
+    on the card against its plain route on the same tensors moved to the
+    CPU; ``dryrun_multichip`` over SHARDS slots of this card against
+    golden and the same call on SHARDS CPU slots, through K1a, K1b, K3,
+    K4 tagged, K5, K6 and K7; with SHARDS cards or more, the dry run over
+    distinct cards against the one-card run. The counts are reset just
+    before each card run and read just after it; returns their sums and
+    the phase's numbers."""
+    from zotpu_torch import entry as E
+    from zotpu_torch import kernels
+    from zotpu_torch.reference_impl import golden as G
+
+    say(f"phase 13b: entry points: entry() on the card, "
+        f"dryrun_multichip({SHARDS}) over {SHARDS} slots of it")
+    step, args = E.entry()
+    check(all(a.device.type == "cuda" for a in args),
+          "entry()'s arguments live on the card")
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    got = step(*args)
+    n = int(got[2])
+    entry_wall = time.perf_counter() - t0
+    run = kernels.launches()
+    want = step(*(a.cpu() for a in args))
+    check(n == int(want[2])
+          and torch.equal(got[0][:n].cpu(), want[0][:n])
+          and torch.equal(got[1][:n].cpu(), want[1][:n]),
+          "entry()'s dense prefix and n equal the plain route's on the CPU")
+    check(run["pack_canonical"] > 0 and run["dedup_compact"] > 0,
+          f"entry() launched K1b and K2: {run}")
+    launches = dict(run)
+    step_ms = cuda_ms(torch, lambda: step(*args))
+    res = {"entry": {"unique": n, "wall_s_first": entry_wall,
+                     "step_ms": step_ms, "launches": {
+                         k: v for k, v in run.items() if v}}}
+
+    codes, _ = E.dry_inputs(SHARDS)
+    gk, gc = G.kmerize(E.DRY_K, list(codes))
+    slots = [str(dev)] * SHARDS
+    kernels.reset_launches()
+    one = E.dryrun_multichip(SHARDS, devices=slots)
+    run = kernels.launches()
+    want = ("pack_canonical_wire", "pack_canonical", "set_op_fused",
+            "join_row_hits_tagged", "merge_runs", "merge_dedup",
+            "merge_runs_payload")
+    check(all(run[name] > 0 for name in want),
+          f"the dry run launched {sorted(k for k in want if not run[k])} "
+          f"no time")
+    for name, v in run.items():
+        launches[name] += v
+    cpu = E.dryrun_multichip(SHARDS, devices=["cpu"] * SHARDS)
+
+    def same(a, b):
+        return (all(np.array_equal(a[key], b[key])
+                    for key in ("keys", "counts", "row_hits"))
+                and all(a[key] == b[key] for key in
+                        ("union", "cards", "overflow", "slot_bytes")))
+
+    check(np.array_equal(one["keys"], gk)
+          and np.array_equal(one["counts"], gc * 2),
+          "the dry run's global set equals golden.kmerize (counts twice: "
+          "the accumulator took the batch twice)")
+    check(same(one, cpu), "the dry run on the card equals it on CPU slots")
+    warm = E.dryrun_multichip(SHARDS, devices=slots)
+    check(same(warm, one), "a second dry run gives the same result")
+
+    def row(r, launched):
+        return {"devices": r["devices"], "wall_s": r["wall"],
+                "sent_bytes": r["sent_bytes"],
+                "slot_bytes": r["slot_bytes"], "unique": len(r["keys"]),
+                "union": r["union"], "overflow": r["overflow"],
+                "launches": {k: v for k, v in launched.items() if v}}
+
+    res["dryrun_one_card"] = row(one, run)
+    res["dryrun_one_card_warm_wall_s"] = warm["wall"]
+    n_cards = torch.cuda.device_count()
+    if n_cards >= SHARDS:
+        kernels.reset_launches()
+        multi = E.dryrun_multichip(SHARDS)
+        run = kernels.launches()
+        check(all(run[name] > 0 for name in want)
+              and multi["devices"] == [f"cuda:{i}" for i in range(SHARDS)],
+              f"the dry run over {SHARDS} cards launched every kernel: {run}")
+        check(same(multi, one), f"the dry run over {SHARDS} distinct cards "
+              f"equals the one-card run")
+        res["dryrun_distinct_cards"] = row(multi, run)
+        res["dryrun_distinct_cards_warm_wall_s"] = E.dryrun_multichip(
+            SHARDS)["wall"]
+    else:
+        say(f"  {n_cards} card(s) visible: the dry run ran over {SHARDS} "
+            f"slots of one card only, not over {SHARDS} distinct cards")
+    say(f"  entry(): {n} unique k-mers, first call {entry_wall:.4f} s, step "
+        f"{step_ms:.4f} ms (CUDA events, queued); dryrun_multichip("
+        f"{SHARDS}) on one card: wall {json.dumps(one['wall'])}, warm "
+        f"{json.dumps(warm['wall'])}, sent_bytes {one['sent_bytes']}, "
+        f"slot_bytes {one['slot_bytes']}, equal to golden and to CPU slots; "
+        f"{card_line()}")
+    return launches, res
 
 
 def run_module(argv, timeout):
@@ -2013,6 +2144,7 @@ def main() -> int:
         spill_launches, spill = phase_spill(torch, dev, fx, tmp)
         spectrum = phase_spectrum(torch, tmp)
         multi = phase_multi(torch, fx, tmp, scan_lines, per_read)
+    entry_launches, entry = phase_entry(torch, dev)
     bench_launches = phase_bench(torch)
     op_launches["merge"] += merge["set_op_fused"]
     by_path = {"kmerize": launches["set_op_fused"], **op_launches,
@@ -2027,6 +2159,7 @@ def main() -> int:
     say(f"spill/resume: {json.dumps(spill)}")
     say(f"spectrum: {json.dumps(spectrum)}")
     say(f"multi-controller: {json.dumps(multi)}")
+    say(f"entry points: {json.dumps(entry)}")
     say(f"K3 launches by path: {json.dumps(by_path)}")
     check(not any(m.split(".")[0] in ("jax", "zotpu") for m in sys.modules),
           "neither jax nor the JAX package zotpu was imported")
@@ -2037,6 +2170,7 @@ def main() -> int:
         {"name": name, "route": "cuda", "source": KERNEL_INFO[name][0],
          "replaces": KERNEL_INFO[name][1], "launches": launches[name],
          "bench_launches": bench_launches[name],
+         "entry_launches": entry_launches[name],
          **rows[name]} for name in KERNEL_INFO] + [
         # K3 again, at the set-op bench size: the launches are those of
         # the op's own path (merge: phases 9 and 10; the others: phase 10)

@@ -97,6 +97,17 @@ def test_d8_terms_run_off_pallas_too(recs):
     assert "t_step_nodedup_s" not in model and model["t_step_s"] > 0
 
 
+def test_scan_shard_model_states_the_port_s_exchange_bytes(recs):
+    """``alltoall_bytes_per_chip`` keeps the JAX count, 12 B a k-mer (held
+    equal to the JAX record in test_torch_bench_parity.py); the port's
+    exchange ships an int64 key and an int64 row id a k-mer, 16 B, under
+    ``alltoall_bytes_per_chip_port``, a key with no JAX counterpart."""
+    scan = next(r for r in recs if r["workload"] == "scan_shard_model")
+    assert scan["alltoall_bytes_per_chip"] == scan["kmers_probed"] * 12
+    assert scan["alltoall_bytes_per_chip_port"] == scan["kmers_probed"] * 16
+    assert "alltoall_bytes_per_chip_port" not in TH.COUNT_KEYS
+
+
 def test_setops_sort_is_its_own_workload():
     (rec,) = run_port("setops-sort")
     assert rec["workload"] == "setops_merge" and rec["impl"] == "sort"

@@ -567,6 +567,72 @@ def test_multi_controller_nccl_on_distinct_cards(dev, tmp_path, capsys):
     assert sorted(rows) == sorted(single)
 
 
+# ----- the entry points (zotpu_torch/entry.py)
+
+
+# the kernels one dry run launches: K1a (wire step), K1b (mixed step and
+# pulldown), K5 and K6 (receive tree), K3 (level merge, set ops), K7 and
+# K4 tagged (pulldown)
+DRYRUN_KERNELS = ("pack_canonical_wire", "pack_canonical", "merge_runs",
+                  "merge_dedup", "set_op_fused", "merge_runs_payload",
+                  "join_row_hits_tagged")
+
+
+def _dryrun_equal(got, want):
+    for key in ("keys", "counts", "row_hits"):
+        assert np.array_equal(got[key], want[key]), key
+    for key in ("union", "cards", "overflow", "slot_bytes"):
+        assert got[key] == want[key], key
+
+
+def test_entry_step_on_card(dev):
+    """``entry()``'s step on the card (K1b, torch.sort, K2) against the
+    same step on the CPU (the plain versions)."""
+    from zotpu_torch import entry as E
+    from zotpu_torch import kernels
+    step, args = E.entry()
+    assert all(a.is_cuda for a in args)
+    kernels.reset_launches()
+    got = step(*args)
+    run = kernels.launches()
+    want = step(*(a.cpu() for a in args))
+    _assert_dense_equal(tuple(t.cpu() for t in got), want)
+    assert run["pack_canonical"] == 1 and run["dedup_compact"] == 1
+
+
+def test_entry_dryrun_on_card_slots(dev):
+    """``dryrun_multichip`` over 4 slots on this card: equal to golden and
+    to the same call on 4 CPU slots, through every kernel of the path."""
+    from zotpu_torch import entry as E
+    from zotpu_torch import kernels
+    kernels.reset_launches()
+    got = E.dryrun_multichip(4, devices=[dev] * 4)
+    run = kernels.launches()
+    assert all(run[name] > 0 for name in DRYRUN_KERNELS), run
+    want = E.dryrun_multichip(4, devices=["cpu"] * 4)
+    _dryrun_equal(got, want)
+    codes, _ = E.dry_inputs(4)
+    gk, gc = G.kmerize(E.DRY_K, list(codes))
+    assert np.array_equal(got["keys"], gk)
+    assert np.array_equal(got["counts"], gc * 2)
+
+
+def test_entry_dryrun_on_distinct_cards(dev):
+    """``dryrun_multichip(4)`` over cuda:0..3 (the all-to-all copies rows
+    between cards) equals the run over 4 slots of one card; skips with
+    fewer than 4 cards."""
+    from zotpu_torch import entry as E
+    from zotpu_torch import kernels
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs 4 CUDA devices")
+    kernels.reset_launches()
+    got = E.dryrun_multichip(4)
+    run = kernels.launches()
+    assert got["devices"] == [f"cuda:{i}" for i in range(4)]
+    assert all(run[name] > 0 for name in DRYRUN_KERNELS), run
+    _dryrun_equal(got, E.dryrun_multichip(4, devices=["cuda:0"] * 4))
+
+
 # ----- set algebra, merge, jaccard, spill/resume and spectrum on the card
 
 

@@ -28,6 +28,7 @@ import os
 import socket
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -50,21 +51,41 @@ def free_port() -> int:
 
 def spawn(argvs, timeout=TIMEOUT, cwd=None, env=None):
     """Start one process per argv together; wait at most ``timeout``
-    seconds for all of them, killing every one on expiry (a hang fails
-    one test, not the suite). Returns [(returncode, output)]."""
+    seconds for each of them in turn, killing every one on expiry (a hang
+    fails one test, not the suite). Returns [(returncode, output)].
+
+    Every process's pipe is read from its own thread while they run: a
+    process whose exit waits for its peers (NCCL's teardown does) would
+    otherwise wait for a peer blocked on a full pipe that is read only
+    after the first process has exited."""
     env = {**(env or os.environ), "PYTHONPATH": REPO, "OMP_NUM_THREADS": "1"}
     procs = [subprocess.Popen([sys.executable, *map(str, a)], env=env,
                               cwd=cwd, stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for a in argvs]
+    outs = [""] * len(procs)
+
+    def drain(i):
+        with procs[i].stdout as f:
+            outs[i] = f.read()
+
+    readers = [threading.Thread(target=drain, args=(i,), daemon=True)
+               for i in range(len(procs))]
+    for t in readers:
+        t.start()
     try:
-        outs = [p.communicate(timeout=timeout)[0] for p in procs]
+        for p in procs:
+            p.wait(timeout=timeout)
     except subprocess.TimeoutExpired:
         for p in procs:
             p.kill()
         for p in procs:
-            p.communicate()
+            p.wait()
         pytest.fail(f"processes still running after {timeout} s: {argvs}")
+    finally:
+        for t in readers:
+            t.join(timeout=30)
+    assert not any(t.is_alive() for t in readers), "a pipe stayed open"
     return [(p.returncode, o) for p, o in zip(procs, outs)]
 
 

@@ -56,7 +56,8 @@ def test_every_port_module_is_listed():
                  "zotpu_torch/stats.py", "zotpu_torch/kernels/hist.py",
                  "zotpu_torch/workloads/setops.py",
                  "zotpu_torch/workloads/spectrum.py",
-                 "zotpu_torch/selftest.py", "zotpu_torch/metrics.py"):
+                 "zotpu_torch/selftest.py", "zotpu_torch/metrics.py",
+                 "zotpu_torch/entry.py"):
         assert need in names
     assert (ROOT / "zotpu_torch/native/fastq_parser.cpp").exists()
     assert not list((ROOT / "zotpu_torch").rglob("*.so")) or all(

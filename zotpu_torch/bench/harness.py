@@ -37,8 +37,10 @@ What the port measures differently, by key:
   every run ascending (the TPU's alternating direction is not kept). A
   failure to build or launch a kernel there raises; nothing is swallowed.
   ``alltoall_bytes_per_chip`` of the scan keeps the JAX count of 12 B a
-  k-mer (key and row id); the port's row ids are int64, so its exchange
-  ships 16 B.
+  k-mer (a u32 key pair and a u32 row id), so that it stays comparable
+  with the JAX record. The port routes an int64 key and an int64 row id,
+  16 B a k-mer: ``alltoall_bytes_per_chip_port`` holds that, read off the
+  exchanged tensors (``step.routed_bytes_per_probe``).
 - ``setops_shard_model`` times ``workloads/setops._run_slots``, which reads
   the cardinalities on the host in every call: one sync per dispatch.
 - ``kmerize_sustained`` sizes its accumulator from the batch shape, where
@@ -331,7 +333,8 @@ def bench_scan_shard_model(n_reads: int = 1 << 17, *, device,
         "kmers_probed": kmers, "total_hits": total_hits,
         "t_sharded_step_s": dt, "t_single_sync_s": dt_sync,
         "kmers_per_s_chip": kmers / dt,
-        "alltoall_bytes_per_chip": kmers * 12,   # key and row id
+        "alltoall_bytes_per_chip": kmers * 12,   # the JAX count
+        "alltoall_bytes_per_chip_port": kmers * step.routed_bytes_per_probe,
     }
     # At D=1 the tree has no pass; an 8-slot host merges its 8 received
     # probe runs with log2(8) K7 passes, measured on this device

@@ -28,7 +28,10 @@ The mesh provides the collectives the step bodies and workloads use:
   process order on every process (``process_allgather(tiled=True)``).
 
 Every exchanged tensor is int64 or int32 (gloo refuses uint64). The bytes
-this process sends to other processes are counted (``sent_bytes``).
+this process sends to other processes are counted (``sent_bytes``), and
+apart from them the all-to-all rows each slot addresses to another slot,
+in any process or on any device (``slot_bytes``: the exchange's volume,
+which a single controller moves without a process boundary).
 """
 
 from __future__ import annotations
@@ -38,7 +41,7 @@ import math
 import torch
 import torch.distributed as dist
 
-_SENT = {"bytes": 0}
+_SENT = {"bytes": 0, "slot_bytes": 0}
 
 
 def sent_bytes() -> int:
@@ -47,8 +50,14 @@ def sent_bytes() -> int:
     return _SENT["bytes"]
 
 
+def slot_bytes() -> int:
+    """Bytes of the all-to-all rows that this process's slots addressed to
+    other slots since the last ``reset_sent_bytes``."""
+    return _SENT["slot_bytes"]
+
+
 def reset_sent_bytes() -> None:
-    _SENT["bytes"] = 0
+    _SENT["bytes"] = _SENT["slot_bytes"] = 0
 
 
 def shard_bits(n_shards: int) -> int:
@@ -135,6 +144,8 @@ class Mesh:
         local slot j, global sender s's row for j at [s * C, (s + 1) * C)."""
         D, L = self.size, len(self.devices)
         C = sends[0].shape[1]
+        _SENT["slot_bytes"] += (L * D * C * sends[0].element_size()
+                                * (D - 1) // D)
         if self.multi:
             P = self.process_count
             # [sender slot, dest process, dest slot] -> dest process first,

@@ -367,7 +367,9 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
     cannot embed the owner the received probes are not key-sorted; K4's
     tagged entry needs no sorted probes, so they go to it unmerged (JAX's
     ``_join_xla`` fallback is not ported). ``step.second_rounds`` counts
-    the calls that took the overflow round."""
+    the calls that took the overflow round; ``step.routed_bytes_per_probe``
+    is what one routed probe ships (its key and row id), read off the
+    exchanged tensors of the last call."""
     _check_step(k, read_len, wire, shard_hash)
     D = mesh.size
     p = shard_bits(D)
@@ -395,6 +397,8 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
         r = _route(mesh, keys, k, cap, payload=rids, capacity2=cap2,
                    owners=owners if mixed else None)
         step.second_rounds += r.need2
+        step.routed_bytes_per_probe = (r.keys[0].element_size()
+                                       + r.pay[0].element_size())
         hits = []
         for d, (rk, rt) in enumerate(zip(r.keys, r.pay)):
             if mixed:
@@ -406,6 +410,7 @@ def make_pulldown_step(mesh, k: int, reads_per_chip: int, read_len: int,
         return mesh.psum(hits), r.overflow
 
     step.second_rounds = 0
+    step.routed_bytes_per_probe = None
     return step
 
 
