@@ -283,24 +283,25 @@ def test_kmerize_trace_on_cuda_without_a_card_exits_1(data, capsys,
 @pytest.mark.parametrize("wall", [0.0, 2.5])
 def test_stage_metrics_and_timed_match_jax(tmp_path, fields, wall):
     """``kmerize_stage_metrics`` on the port's Stats equals the JAX
-    package's on its own; ``timed`` and ``MetricsLogger`` write the same
-    record but for the clock."""
+    package's on its own, and ``MetricsLogger.log`` of it writes the same
+    record but for the clock. (The port has no ``timed``: its stages are
+    ``metrics.span``s in a profiler's trace, tests/test_torch_spans.py.)"""
     from zotpu import metrics as zmetrics
     from zotpu.workloads import kmerize as ZW
     from zotpu_torch.workloads import kmerize as TW
     n = fields.get("n_chips", 1)
-    assert (metrics.kmerize_stage_metrics(TW.Stats(**fields), wall, n)
-            == zmetrics.kmerize_stage_metrics(ZW.Stats(**fields), wall, n))
+    port = metrics.kmerize_stage_metrics(TW.Stats(**fields), wall, n)
+    assert port == zmetrics.kmerize_stage_metrics(ZW.Stats(**fields), wall,
+                                                  n)
     recs = {}
     for name, mod in (("port", metrics), ("jax", zmetrics)):
         log = mod.MetricsLogger(str(tmp_path / f"{name}.jsonl"), host_id=3)
-        with mod.timed(log, "stage", batch=7):
-            pass
-        with mod.timed(None, "ignored"):
-            pass
+        returned = log.log("kmerize", batch=7, **port)
         log.close()
-        recs[name] = json.loads((tmp_path / f"{name}.jsonl").read_text())
+        lines = (tmp_path / f"{name}.jsonl").read_text().splitlines()
+        assert len(lines) == 1 and json.loads(lines[0]) == returned
+        recs[name] = returned
     for rec in recs.values():
-        assert rec.pop("ts") > 0 and rec.pop("seconds") >= 0
-    assert recs["port"] == recs["jax"] == {"host": 3, "event": "stage",
-                                           "batch": 7}
+        assert rec.pop("ts") > 0
+    assert recs["port"] == recs["jax"] == {"host": 3, "event": "kmerize",
+                                           "batch": 7, **port}

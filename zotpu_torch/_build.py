@@ -22,6 +22,8 @@ import time
 
 import torch
 
+from zotpu_torch import metrics
+
 _PKG = os.path.dirname(os.path.abspath(__file__))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "_build")
@@ -122,13 +124,15 @@ def lib() -> ctypes.CDLL:
     global _lib
     with _lock:
         if _lib is None:
-            so, _ = build()
+            t0 = time.perf_counter()
+            so, build_s = build()
             loaded = ctypes.CDLL(so)
             for name, (restype, argtypes) in _SIGNATURES.items():
                 fn = getattr(loaded, name)
                 fn.restype = restype
                 fn.argtypes = argtypes
             _lib = loaded
+            metrics.count_load(time.perf_counter() - t0, build_s)
         return _lib
 
 

@@ -14,8 +14,11 @@ import hashlib
 import os
 import subprocess
 import threading
+import time
 
 import numpy as np
+
+from zotpu_torch import metrics
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SRC = os.path.join(_PKG, "native", "fastq_parser.cpp")
@@ -25,26 +28,28 @@ _lib = None
 _lib_failed = False
 
 
-def _build() -> str | None:
+def _build() -> tuple[str | None, float]:
     """Build the .so unless the one for this source exists; its name carries
     a hash of the source, so a stale or foreign binary is never loaded.
-    Returns its path, or None when it cannot be built."""
+    Returns its path, or None when it cannot be built, and the seconds
+    spent compiling (0.0 when it existed)."""
     try:
         with open(_SRC, "rb") as f:
             digest = hashlib.sha256(f.read()).hexdigest()[:16]
         so = os.path.join(_BUILD_DIR, f"libzotpu_native-{digest}.so")
         if os.path.exists(so):
-            return so
+            return so, 0.0
         os.makedirs(_BUILD_DIR, exist_ok=True)
         tmp = f"{so}.tmp{os.getpid()}"
+        t0 = time.perf_counter()
         # Portable flags only: -march=native output SIGILLs on older hosts.
         subprocess.run(
             ["g++", "-O3", "-shared", "-fPIC", "-o", tmp, _SRC],
             check=True, capture_output=True)
         os.replace(tmp, so)
-        return so
+        return so, time.perf_counter() - t0
     except (subprocess.CalledProcessError, FileNotFoundError, OSError):
-        return None
+        return None, 0.0
 
 
 def get_lib():
@@ -56,7 +61,8 @@ def get_lib():
     with _lock:
         if _lib is not None or _lib_failed:
             return _lib
-        so = _build()
+        t0 = time.perf_counter()
+        so, build_s = _build()
         if so is None:
             _lib_failed = True
             return None
@@ -78,6 +84,7 @@ def get_lib():
             _lib_failed = True
             return None
         _lib = lib
+        metrics.count_load(time.perf_counter() - t0, build_s)
         return _lib
 
 

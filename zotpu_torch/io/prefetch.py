@@ -5,7 +5,8 @@ A copy of zotpu/io/prefetch.py.
 The parse stages (gzip inflate via zlib, numpy LUT encode, the ctypes native
 parser) all release the GIL, so a single prefetch thread genuinely overlaps
 host parsing with device compute and host-side merging (SURVEY.md section 2b
-"PP analog": input pipeline software pipelining).
+"PP analog": input pipeline software pipelining). The consumer's wait for
+the next item is the span ``parse_wait`` (metrics.span).
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ from __future__ import annotations
 import queue
 import threading
 from typing import Iterable, Iterator, TypeVar
+
+from zotpu_torch import metrics
 
 T = TypeVar("T")
 
@@ -53,7 +56,8 @@ def prefetch(it: Iterable[T], depth: int = 2) -> Iterator[T]:
     t.start()
     try:
         while True:
-            item = q.get()
+            with metrics.span("parse_wait"):
+                item = q.get()
             if item is _SENTINEL:
                 break
             yield item
@@ -125,7 +129,8 @@ def prefetch_many(factories, workers: int = 4, depth: int = 8):
     threading.Thread(target=closer, daemon=True).start()
     try:
         while True:
-            item = q.get()
+            with metrics.span("parse_wait"):
+                item = q.get()
             if item is _SENTINEL:
                 break
             yield item

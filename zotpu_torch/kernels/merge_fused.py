@@ -33,7 +33,7 @@ from __future__ import annotations
 
 import torch
 
-from zotpu_torch import _build
+from zotpu_torch import _build, metrics
 from zotpu_torch.keys import COUNT_MAX, SENTINEL
 
 OPS = {"merge": 0, "union": 0, "intersect": 1, "diff": 2}
@@ -96,16 +96,30 @@ def set_op_fused(ka, ca, kb, cb, op: str = "merge", n_a=None, n_b=None):
     """Two dense sorted unique (keys, counts) sets -> dense (keys, counts,
     n_out) of capacity len(A) + len(B). Only ``[:n_out]`` is defined when
     both valid counts are given; without one of them the tail is SENTINEL
-    / 0 (see the module docstring)."""
+    / 0 (see the module docstring). Counts the keys in (a side's valid
+    count, or its length where none is given) and out as
+    ``merge.keys_in`` and ``merge.keys_out`` (metrics.count)."""
     if op not in OPS:
         raise ValueError(f"unknown set op {op!r}")
     device = ka.device
     _check_side(ka, ca, n_a, device, "a")
     _check_side(kb, cb, n_b, device, "b")
-    if device.type == "cpu":
-        return set_op_plain(ka, ca, kb, cb, op, n_a, n_b)
-    if device.type != "cuda":
+    if device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {device}")
+    out = (set_op_plain(ka, ca, kb, cb, op, n_a, n_b) if device.type == "cpu"
+           else _set_op_cuda(ka, ca, kb, cb, op, n_a, n_b))
+    if metrics.tracing():
+        for m, n in ((ka.shape[0], n_a), (kb.shape[0], n_b)):
+            if n is None:
+                metrics.count("merge.keys_in", m)
+            else:
+                metrics.count_device("merge.keys_in", n)
+        metrics.count_device("merge.keys_out", out[2])
+    return out
+
+
+def _set_op_cuda(ka, ca, kb, cb, op, n_a, n_b):
+    device = ka.device
     MA, MB = ka.shape[0], kb.shape[0]
     if MA + MB == 0:
         return ka.new_empty(0), ca.new_empty(0), ka.new_zeros(())

@@ -19,7 +19,7 @@ from __future__ import annotations
 
 import torch
 
-from zotpu_torch import _build
+from zotpu_torch import _build, metrics
 from zotpu_torch.keys import SENTINEL
 
 
@@ -43,16 +43,24 @@ def dedup_compact_plain(keys):
 def dedup_compact(keys):
     """Sorted int64 keys with duplicates and a sentinel tail -> dense
     (ukeys, counts, n_unique), defined in ``[:n_unique]`` (see the module
-    docstring). One pass over the keys, no sort."""
+    docstring). One pass over the keys, no sort. Counts the keys in and
+    out as ``dedup.keys_in`` and ``dedup.keys_out`` (metrics.count)."""
     if keys.dtype != torch.int64 or keys.dim() != 1:
         raise ValueError(f"keys must be 1-D int64, got {tuple(keys.shape)} "
                          f"{keys.dtype}")
     if not keys.is_contiguous():
         raise ValueError("keys must be contiguous")
-    if keys.device.type == "cpu":
-        return dedup_compact_plain(keys)
-    if keys.device.type != "cuda":
+    if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {keys.device}")
+    out = (dedup_compact_plain(keys) if keys.device.type == "cpu"
+           else _dedup_compact_cuda(keys))
+    if metrics.tracing():
+        metrics.count("dedup.keys_in", keys.shape[0])
+        metrics.count_device("dedup.keys_out", out[2])
+    return out
+
+
+def _dedup_compact_cuda(keys):
     n = keys.shape[0]
     ukeys = torch.empty_like(keys)
     counts = torch.empty_like(keys)

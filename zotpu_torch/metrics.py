@@ -4,6 +4,23 @@ Port of zotpu/metrics.py. Per-stage counters (reads, bases, k-mers emitted,
 k-mers routed per shard, dedup ratio) logged as JSONL per host -- these
 feed the BASELINE metrics (k-mers/s/chip, bases/s, routing skew). Also
 wraps a ``torch.profiler`` trace around a workload step.
+
+Spans and counters inside the program, for whoever runs a
+``torch.profiler`` over it (``profiled``, the benchmark's traced runs):
+
+- ``span(name)`` is a range ``zotpu.<name>`` in the profiler's trace, on
+  the profiler's clock (the one the device events are on). Spans are
+  recorded on the thread that opens them; a profiler that does not trace
+  every thread sees only those of the thread that started it, so the
+  workloads open them on the thread that drives the jobs.
+- ``count(name, n)`` adds a host number; ``count_device(name, t)`` keeps a
+  0-d device tensor, with no host sync and no device work; ``counters()``
+  sums them all (one sync a device).
+
+Both record only while a profiler is enabled, and cost one flag check
+otherwise. ``count_load`` is the exception: a library loads once a
+process, in set-up, before any profiler starts, so its seconds are
+always kept.
 """
 
 from __future__ import annotations
@@ -12,7 +29,26 @@ import contextlib
 import json
 import os
 import sys
+import threading
 import time
+
+import torch
+
+#: Whether a profiler is enabled, the one check a span or counter makes
+#: (about 0.1 us); a caller that must compute a count tests it first.
+tracing = torch._C._autograd._profiler_enabled
+# A range with no GPU-side annotation: a span is host time, and the device
+# timeline keeps only the device's own work. The class is private to torch
+# (there in 2.11 and 2.13; tests/test_torch_spans.py checks it); without it
+# a span is a record_function range, which adds a device event of its name.
+_Range = getattr(torch._C._profiler, "_RecordFunctionFast",
+                 torch.profiler.record_function)
+_NO_SPAN = contextlib.nullcontext()
+SPAN_PREFIX = "zotpu."
+
+_lock = threading.Lock()
+_host: dict[str, float] = {}
+_device: dict[str, list[torch.Tensor]] = {}
 
 
 class MetricsLogger:
@@ -38,14 +74,85 @@ class MetricsLogger:
             self._fh = None
 
 
-@contextlib.contextmanager
-def timed(logger: MetricsLogger | None, event: str, **fields):
-    """Wall-clock a stage; caller must synchronize inside for device work."""
-    t0 = time.perf_counter()
-    yield
-    dt = time.perf_counter() - t0
-    if logger is not None:
-        logger.log(event, seconds=dt, **fields)
+def span(name: str):
+    """A context manager: the range ``zotpu.<name>`` while a profiler is
+    enabled, else nothing."""
+    return _Range(SPAN_PREFIX + name) if tracing() else _NO_SPAN
+
+
+def count(name: str, n) -> None:
+    """Add the host number ``n`` to counter ``name`` while a profiler is
+    enabled."""
+    if tracing():
+        with _lock:
+            _host[name] = _host.get(name, 0) + n
+
+
+def count_device(name: str, t: torch.Tensor) -> None:
+    """Add the one-element tensor ``t`` to counter ``name`` while a
+    profiler is enabled: it is kept, and ``counters()`` sums it, so the
+    device does no work and the host does not wait for it here."""
+    if tracing():
+        with _lock:
+            _device.setdefault(name, []).append(t)
+
+
+def count_load(seconds: float, build_s: float) -> None:
+    """A library's first load: its seconds, the build's included, to
+    ``load.s``; the compiler's seconds to ``load.build_s`` (a checkout
+    that holds the build compiles nothing). Always kept."""
+    with _lock:
+        _host["load.s"] = _host.get("load.s", 0.0) + seconds
+        _host["load.build_s"] = _host.get("load.build_s", 0.0) + build_s
+
+
+def counters() -> dict:
+    """Every counter: {name: value}, a device counter summed over its
+    devices."""
+    with _lock:
+        out = dict(_host)
+        device = [(name, list(ts)) for name, ts in _device.items()]
+    by_dev: dict = {}
+    for name, ts in device:
+        for t in ts:
+            by_dev.setdefault(t.device, {}).setdefault(name, []).append(
+                t.reshape(()))
+    for groups in by_dev.values():
+        sums = torch.stack([torch.stack(g).sum() for g in groups.values()])
+        for name, v in zip(groups, sums.tolist()):
+            out[name] = out.get(name, 0) + v
+    return out
+
+
+def reset_counters() -> None:
+    """Drop every counter, ``load.*`` included."""
+    with _lock:
+        _host.clear()
+        _device.clear()
+
+
+def _alloc_calls(device) -> tuple[int, int]:
+    return (torch.cuda.memory_stats(device)["num_device_alloc"],
+            torch.cuda.host_memory_stats()["num_host_alloc"])
+
+
+def alloc_mark(device):
+    """The allocators' calls into CUDA so far (the device's
+    ``cudaMalloc``, pinned ``cudaHostAlloc``, from any thread), while a
+    profiler is enabled and ``device`` is a CUDA device; else None."""
+    if tracing() and torch.device(device).type == "cuda":
+        return device, _alloc_calls(device)
+    return None
+
+
+def count_allocs(mark) -> None:
+    """Add the calls since ``alloc_mark`` to ``alloc.device`` and
+    ``alloc.host``."""
+    if mark is not None:
+        device, (d0, h0) = mark
+        d1, h1 = _alloc_calls(device)
+        count("alloc.device", d1 - d0)
+        count("alloc.host", h1 - h0)
 
 
 TRACE_FILE = "trace.json"
@@ -63,7 +170,6 @@ def profiled(trace_dir: str | None, device=None):
     if not trace_dir:
         yield
         return
-    import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 

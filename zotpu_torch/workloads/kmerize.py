@@ -42,6 +42,7 @@ import os
 import numpy as np
 import torch
 
+from zotpu_torch import metrics
 from zotpu_torch import semantics as S
 from zotpu_torch import keys as K
 from zotpu_torch.io import container, fastq, wire
@@ -123,21 +124,26 @@ def host_tensors(batch, wire_pack: bool, pin: bool):
 
 def upload(host, device, copy_stream):
     """Start copying host tensors to ``device`` on ``copy_stream`` (None on
-    the CPU, where the tensors are returned as they are)."""
-    if copy_stream is None:
-        return tuple(t.to(device) for t in host)
-    with torch.cuda.stream(copy_stream):
-        return tuple(t.to(device, non_blocking=True) for t in host)
+    the CPU, where the tensors are returned as they are). Counts their
+    bytes as ``h2d.bytes``."""
+    if metrics.tracing():
+        metrics.count("h2d.bytes", sum(t.nbytes for t in host))
+    with metrics.span("upload"):
+        if copy_stream is None:
+            return tuple(t.to(device) for t in host)
+        with torch.cuda.stream(copy_stream):
+            return tuple(t.to(device, non_blocking=True) for t in host)
 
 
 def await_upload(tensors, device, copy_stream) -> None:
     """Make the compute stream of ``device`` wait for an upload."""
     if copy_stream is None:
         return
-    compute = torch.cuda.current_stream(device)
-    compute.wait_stream(copy_stream)
-    for t in tensors:
-        t.record_stream(compute)
+    with metrics.span("upload"):
+        compute = torch.cuda.current_stream(device)
+        compute.wait_stream(copy_stream)
+        for t in tensors:
+            t.record_stream(compute)
 
 
 class SlotUploads:
@@ -214,8 +220,9 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
         for tag, (batch, host) in prefetch_many(
                 [functools.partial(parse_one, p) for p in paths],
                 workers=workers, depth=2 * max(workers, 1)):
-            n_rec, last_ids[tag] = count(batch, last_ids.get(tag))
-            account(batch, n_rec)
+            with metrics.span("account"):
+                n_rec, last_ids[tag] = count(batch, last_ids.get(tag))
+                account(batch, n_rec)
             yield host
         return
 
@@ -227,7 +234,8 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
                 yield batch, host, n_rec
 
     for batch, host, n_rec in prefetch(all_batches(), depth=2):
-        account(batch, n_rec)
+        with metrics.span("account"):
+            account(batch, n_rec)
         yield host
 
 
@@ -346,6 +354,7 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
     that many run files exist."""
     S.check_k(k)
     device = torch.device(device)
+    allocs = metrics.alloc_mark(device)
     stats = stats if stats is not None else Stats()
     on_cuda = device.type == "cuda"
     copy_stream = torch.cuda.Stream(device) if on_cuda else None
@@ -361,18 +370,21 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
     def consume(p):
         nonlocal acc
         run, bno, run_path = p
-        if use_acc:
-            if acc is None:
-                acc = DeviceAccumulator(run[0].shape[0],
-                                        max_cap=merge_capacity, device=device)
-            acc.add(*run)
-            return
-        # spill mode transfers every batch by design
-        n = int(run[2])
-        keys, cnts = K.to_numpy_set(*to_host([run[0][:n], run[1][:n]]), n)
-        _write_run(run_path, k, keys, cnts, bno, stamp)
-        stats.kmers += int(cnts.sum(dtype=np.uint64))
-        runs.append((keys, cnts))
+        with metrics.span("merge"):
+            if use_acc:
+                if acc is None:
+                    acc = DeviceAccumulator(run[0].shape[0],
+                                            max_cap=merge_capacity,
+                                            device=device)
+                acc.add(*run)
+                return
+            # spill mode transfers every batch by design
+            n = int(run[2])
+            keys, cnts = K.to_numpy_set(*to_host([run[0][:n], run[1][:n]]),
+                                        n)
+            _write_run(run_path, k, keys, cnts, bno, stamp)
+            stats.kmers += int(cnts.sum(dtype=np.uint64))
+            runs.append((keys, cnts))
 
     for host in _iter_batches(paths, batch_reads, max_len, k, stats,
                               wire_pack=wire_pack, pin=on_cuda,
@@ -400,20 +412,24 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
         if pending is not None:
             consume(pending)
         await_upload(dev, device, copy_stream)
-        if wire_pack:
-            keys = pack_canonical_wire(*dev, k)
-        else:
-            keys = pack_canonical(*dev, k)
-        pending = (kmer_sort_dedup(keys), batch_no, run_path)
+        with metrics.span("step"):
+            if wire_pack:
+                keys = pack_canonical_wire(*dev, k)
+            else:
+                keys = pack_canonical(*dev, k)
+            pending = (kmer_sort_dedup(keys), batch_no, run_path)
     if pending is not None:
         consume(pending)
     if not use_acc:
         keys, counts = merge_runs(runs, device=device)
     else:
-        keys, counts = (acc.result() if acc is not None else
-                        (np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)))
-        stats.kmers = int(counts.sum(dtype=np.uint64))
+        with metrics.span("result"):
+            keys, counts = (acc.result() if acc is not None else
+                            (np.empty(0, np.uint64),
+                             np.empty(0, S.COUNT_DTYPE)))
+            stats.kmers = int(counts.sum(dtype=np.uint64))
     stats.unique = len(keys)
+    metrics.count_allocs(allocs)
     return keys, counts
 
 
@@ -505,7 +521,8 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
             raise Interrupted(f"injected failure before batch {batch_no}")
         slots = uploads.start(host)
         if pending is not None:
-            acc.add(pending)
+            with metrics.span("merge"):
+                acc.add(pending)
         uploads.wait(slots)
         out = step(slots)
         routed = add(routed, [o[4] for o in out])
@@ -530,7 +547,8 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
         _write_run(run_path, k, keys, cnts, batch_no, stamp)
         runs.append((keys, cnts))
     if pending is not None:
-        acc.add(pending)
+        with metrics.span("merge"):
+            acc.add(pending)
     stats.second_rounds = step.second_rounds
     if routed is not None:
         total = mesh.psum(overflow or [torch.zeros((), dtype=torch.int64,
@@ -553,9 +571,10 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
     elif overflow is None:
         keys, counts = np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
     else:
-        keys, counts = shuffle.gather_global(
-            *acc.result(), reorder=shard_hash == "mixed")
-        stats.kmers = int(counts.sum(dtype=np.uint64))
+        with metrics.span("result"):
+            keys, counts = shuffle.gather_global(
+                *acc.result(), reorder=shard_hash == "mixed")
+            stats.kmers = int(counts.sum(dtype=np.uint64))
     if multi:   # reads and bases were counted per process
         stats.reads, stats.bases = mesh.allreduce(torch.tensor(
             [stats.reads, stats.bases], dtype=torch.int64,

@@ -27,6 +27,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from zotpu_torch import metrics
 from zotpu_torch.io import fastq
 from zotpu_torch.io.prefetch import prefetch
 from zotpu_torch.dist import shuffle
@@ -56,15 +57,17 @@ def scan_batch_wire(packed, mask, lengths, panel, k: int):
 def panel_to_device(keys: np.ndarray, device="cuda"):
     """Sorted u64 panel keys -> int64 tensor on device (the card unless
     the caller names another), SENTINEL-padded to the next power of two
-    (at least 8)."""
-    keys = np.asarray(keys, np.uint64)
-    n = len(keys)
-    cap = max(1 << (n - 1).bit_length(), 8) if n else 8
-    if n and keys.max() >= np.uint64(1 << 62):
-        raise ValueError("panel key >= 2**62 (not a packed k-mer)")
-    out = np.full(cap, SENTINEL, np.int64)
-    out[:n] = keys.astype(np.int64)
-    return torch.from_numpy(out).to(device)
+    (at least 8). The span ``upload``; its bytes count as ``h2d.bytes``."""
+    with metrics.span("upload"):
+        keys = np.asarray(keys, np.uint64)
+        n = len(keys)
+        cap = max(1 << (n - 1).bit_length(), 8) if n else 8
+        if n and keys.max() >= np.uint64(1 << 62):
+            raise ValueError("panel key >= 2**62 (not a packed k-mer)")
+        out = np.full(cap, SENTINEL, np.int64)
+        out[:n] = keys.astype(np.int64)
+        metrics.count("h2d.bytes", out.nbytes)
+        return torch.from_numpy(out).to(device)
 
 
 class RecordAggregator:
@@ -127,6 +130,7 @@ def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
                    device="cuda"):
     """Per-sample (total_hits, reads_with_hits, per_read_hits list)."""
     device = torch.device(device)
+    allocs = metrics.alloc_mark(device)
     on_cuda = device.type == "cuda"
     panel = panel_to_device(panel_keys, device=device)
     wire_pack = max_len % 32 == 0
@@ -136,25 +140,31 @@ def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
 
     def finish(idx, batch, hits, done):
         if done is not None:
-            done.synchronize()
+            with metrics.span("download_wait"):
+                done.synchronize()
         n = batch.n_reads   # padding rows past n_reads are cut off
-        aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
+        with metrics.span("aggregate"):
+            aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
 
     for idx, batch, host in _iter_scan_batches(
             sample_paths, batch_reads, max_len, k, wire_pack, on_cuda):
         dev = upload(host, device, copy_stream)
         await_upload(dev, device, copy_stream)
-        if wire_pack:
-            hits = scan_batch_wire(*dev, panel, k)
-        else:
-            hits = scan_batch(*dev, panel, k)
-        hits, done = _download(hits)
+        with metrics.span("step"):
+            if wire_pack:
+                hits = scan_batch_wire(*dev, panel, k)
+            else:
+                hits = scan_batch(*dev, panel, k)
+            hits, done = _download(hits)
         if pending is not None:
             finish(*pending)
         pending = (idx, batch, hits, done)
     if pending is not None:
         finish(*pending)
-    return [agg.result() for agg in aggs]
+    with metrics.span("aggregate"):
+        results = [agg.result() for agg in aggs]
+    metrics.count_allocs(allocs)
+    return results
 
 
 def pulldown_paths_sharded(panel_keys: np.ndarray, sample_paths: list[str],
