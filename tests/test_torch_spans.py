@@ -76,7 +76,11 @@ def _host_batches(paths):
 
 @pytest.mark.parametrize("n_files", [1, 3], ids=["one_file", "pool"])
 def test_kmerize_spans_and_counters(data, monkeypatch, n_files):
+    """One file against 3 workers is cut into pieces of BATCH records,
+    which the workers parse; 3 files against 3 workers parse whole. The
+    waits and the accounting stand on the driving thread either way."""
     paths = data[0][:n_files]
+    monkeypatch.setenv("ZOTPU_PARSE_WORKERS", "3")
     merges = []
 
     def spy(ka, ca, kb, cb, op="merge", n_a=None, n_b=None):
@@ -107,7 +111,8 @@ def test_kmerize_spans_and_counters(data, monkeypatch, n_files):
                    "dedup.keys_out": sum(unique),
                    "merge.keys_in": sum(m[0] for m in merges),
                    "merge.keys_out": sum(m[1] for m in merges),
-                   "h2d.bytes": sum(t.nbytes for h in hosts for t in h)}
+                   "h2d.bytes": sum(t.nbytes for h in hosts for t in h),
+                   "parse.pieces": -(-150 // BATCH) if n_files == 1 else 0}
     assert len(keys) == stats.unique > 0
 
 

@@ -177,7 +177,8 @@ class _BatchEmitter:
 
     Memory is bounded by one pending batch + one appended block -- the heart
     of the bounded-RSS streaming pipeline (a WGS run larger than host RAM
-    must stream)."""
+    must stream). A pending batch's buffers are allocated by its first row,
+    so an emitter that full batches pass by costs nothing."""
 
     def __init__(self, max_reads: int, max_len: int):
         self.max_reads = max_reads
@@ -185,12 +186,16 @@ class _BatchEmitter:
         self._reset()
 
     def _reset(self):
-        self.codes = np.full((self.max_reads, self.max_len), S.INVALID_CODE,
-                             np.uint8)
-        self.lengths = np.zeros(self.max_reads, np.int32)
-        self.ids = np.full(self.max_reads, -1, np.int64)
+        self.codes = self.lengths = self.ids = None
         self.r = 0
         self.bases = 0
+
+    def _alloc(self):
+        if self.codes is None:
+            self.codes = np.full((self.max_reads, self.max_len),
+                                 S.INVALID_CODE, np.uint8)
+            self.lengths = np.zeros(self.max_reads, np.int32)
+            self.ids = np.full(self.max_reads, -1, np.int64)
 
     def add_block(self, codes2d, lengths, ids, new_bases):
         """Append a block of rows ((B, max_len) u8 + per-row metadata);
@@ -198,6 +203,7 @@ class _BatchEmitter:
         b = 0
         n = len(lengths)
         while b < n:
+            self._alloc()
             take = min(self.max_reads - self.r, n - b)
             self.codes[self.r:self.r + take] = codes2d[b:b + take]
             self.lengths[self.r:self.r + take] = lengths[b:b + take]
@@ -210,6 +216,7 @@ class _BatchEmitter:
 
     def add_row(self, row, rec_id, new_bases):
         """Append one row (<= max_len codes, padded here)."""
+        self._alloc()
         self.codes[self.r, :len(row)] = row
         self.codes[self.r, len(row):] = S.INVALID_CODE
         self.lengths[self.r] = len(row)
@@ -250,23 +257,86 @@ def _overlong_span_slow(em, span: np.ndarray, rec0: int, max_len: int,
         yield from _emit_record_rows(em, rec, rec0 + i, max_len, halo)
 
 
+def _fastq_records(em, buf, rec0: int, max_reads: int, max_len: int,
+                   halo: int):
+    """Parse every complete record of ``buf`` (bytes or a u8 array), the
+    first with record id ``rec0``, into ``em``; yields each CodeBatch
+    completed along the way and returns (bytes consumed, records parsed).
+    A trailing incomplete record is left unconsumed.
+
+    The one parse of a FASTQ byte span: the serial path runs it on each
+    chunk (with the carry), the cut path (``cut_fastq``) on each piece.
+    It picks its parser itself: the native C++ fast path when available (it
+    finds record boundaries and overlong reads itself via consumed/max_seen
+    -- no redundant numpy newline pre-scan, which cost 9x: 123 vs 1084
+    Mbase/s measured), the vectorized numpy gather otherwise, and
+    per-record halo-chunking for spans with overlong reads -- so a handful
+    of long reads mid-file degrade only their own span. A span of
+    ``max_reads`` records with no read over ``max_len`` passes ``em`` by
+    as one zero-copy batch when ``em`` holds no rows."""
+    from zotpu_torch.io import native
+
+    if native.get_lib() is not None:
+        buf_np = np.frombuffer(buf, np.uint8)
+        off, rec = 0, rec0
+        while True:
+            codes, lengths, n, consumed, mx = native.parse_fastq_buffer(
+                buf, max_reads, max_len, offset=off)
+            if n == 0:  # incomplete trailing record: left to the caller
+                break
+            if mx > max_len:
+                yield from _overlong_span_slow(
+                    em, buf_np[off:off + consumed], rec, max_len, halo)
+            elif em.r == 0 and n == max_reads:
+                # common case: full batch straight through, zero copy
+                ids = np.arange(rec, rec + n, dtype=np.int64)
+                yield CodeBatch(codes=codes, lengths=lengths, n_reads=n,
+                                record_ids=ids)
+            else:
+                ids = np.arange(rec, rec + n, dtype=np.int64)
+                yield from em.add_block(codes[:n], lengths[:n], ids,
+                                        lengths[:n])
+            rec += n
+            off += consumed
+        return off, rec - rec0
+    buf = np.frombuffer(buf, np.uint8)
+    nl = np.where(buf == 0x0A)[0]
+    n_rec = len(nl) // 4
+    if n_rec == 0:
+        return 0, 0
+    end = int(nl[4 * n_rec - 1]) + 1
+    line_starts = np.concatenate(([0], nl[:4 * n_rec - 1] + 1))
+    line_ends = nl[:4 * n_rec].copy()
+    has_cr = (line_ends > line_starts) & (buf[np.maximum(
+        line_ends - 1, 0)] == 0x0D)
+    line_ends -= has_cr
+    s = line_starts[1::4].astype(np.int64)
+    e = line_ends[1::4].astype(np.int64)
+    lens = e - s
+    if len(lens) and int(lens.max()) > max_len:
+        # overlong reads: per-record halo-chunk (rare slow path)
+        for i in range(n_rec):
+            rec = S.ENCODE_LUT[buf[s[i]:e[i]]]
+            yield from _emit_record_rows(em, rec, rec0 + i, max_len, halo)
+    else:
+        idx = s[:, None] + np.arange(max_len)[None, :]
+        idx = np.minimum(idx, len(buf) - 1)
+        rows = np.where(np.arange(max_len)[None, :] < lens[:, None],
+                        S.ENCODE_LUT[buf[idx]], S.INVALID_CODE)
+        ids = rec0 + np.arange(n_rec, dtype=np.int64)
+        yield from em.add_block(rows, lens.astype(np.int32), ids, lens)
+    return end, n_rec
+
+
 def _fastq_batches_chunked(path: str, max_reads: int, max_len: int,
                            halo: int) -> Iterator[CodeBatch]:
     """Chunked FASTQ parse: bounded memory, record-boundary carry.
 
     Reads _chunk_bytes() at a time (gzip-transparent; decompression happens
     here, inside the prefetch thread when driven by workloads). Records are
-    4-line groups, so the carry is everything past the last complete group.
-    Each chunk independently picks its parser: the native C++ fast path when
-    available (it finds record boundaries and overlong reads itself via
-    consumed/max_seen -- no redundant numpy newline pre-scan, which cost 9x:
-    123 vs 1084 Mbase/s measured), the vectorized numpy gather otherwise,
-    and per-record halo-chunking for spans with overlong reads -- so a
-    handful of long reads mid-file degrade only their own span.
+    4-line groups, so the carry is everything past the last complete group;
+    each chunk goes through ``_fastq_records``.
     """
-    from zotpu_torch.io import native
-
-    lib_ok = native.get_lib() is not None
     em = _BatchEmitter(max_reads, max_len)
     rec0 = 0
     with _open_chunks(path) as f:
@@ -280,69 +350,83 @@ def _fastq_batches_chunked(path: str, max_reads: int, max_len: int,
                 buf_b += b"\n"
             if not buf_b:
                 break
-            if lib_ok:
-                buf_np = np.frombuffer(buf_b, np.uint8)
-                off = 0
-                while True:
-                    codes, lengths, n, consumed, mx = (
-                        native.parse_fastq_buffer(buf_b, max_reads, max_len,
-                                                  offset=off))
-                    if n == 0:  # incomplete trailing record: carry it
-                        break
-                    if mx > max_len:
-                        yield from _overlong_span_slow(
-                            em, buf_np[off:off + consumed], rec0, max_len,
-                            halo)
-                    elif em.r == 0 and n == max_reads:
-                        # common case: full batch straight through, zero copy
-                        ids = np.arange(rec0, rec0 + n, dtype=np.int64)
-                        yield CodeBatch(codes=codes, lengths=lengths,
-                                        n_reads=n, record_ids=ids)
-                    else:
-                        ids = np.arange(rec0, rec0 + n, dtype=np.int64)
-                        yield from em.add_block(codes[:n], lengths[:n], ids,
-                                                lengths[:n])
-                    rec0 += n
-                    off += consumed
-                if final:
-                    break
-                carry = buf_b[off:]
-                continue
-            buf = np.frombuffer(buf_b, np.uint8)
-            nl = np.where(buf == 0x0A)[0]
-            n_rec = len(nl) // 4
-            if n_rec == 0:
-                if final:
-                    break  # trailing partial record: tolerate like readers do
-                carry = buf_b
-                continue
-            end = int(nl[4 * n_rec - 1]) + 1
-            line_starts = np.concatenate(([0], nl[:4 * n_rec - 1] + 1))
-            line_ends = nl[:4 * n_rec].copy()
-            has_cr = (line_ends > line_starts) & (buf[np.maximum(
-                line_ends - 1, 0)] == 0x0D)
-            line_ends -= has_cr
-            s = line_starts[1::4].astype(np.int64)
-            e = line_ends[1::4].astype(np.int64)
-            lens = e - s
-            if len(lens) and int(lens.max()) > max_len:
-                # overlong reads: per-record halo-chunk (rare slow path)
-                for i in range(n_rec):
-                    rec = S.ENCODE_LUT[buf[s[i]:e[i]]]
-                    yield from _emit_record_rows(em, rec, rec0 + i, max_len,
-                                                 halo)
-            else:
-                idx = s[:, None] + np.arange(max_len)[None, :]
-                idx = np.minimum(idx, len(buf) - 1)
-                rows = np.where(np.arange(max_len)[None, :] < lens[:, None],
-                                S.ENCODE_LUT[buf[idx]], S.INVALID_CODE)
-                ids = rec0 + np.arange(n_rec, dtype=np.int64)
-                yield from em.add_block(rows, lens.astype(np.int32), ids,
-                                        lens)
-            rec0 += n_rec
+            used, n = yield from _fastq_records(em, buf_b, rec0, max_reads,
+                                                max_len, halo)
+            rec0 += n
             if final:
+                break  # a trailing partial record: tolerate like readers do
+            carry = buf_b[used:]
+    yield from em.flush()
+
+
+def cuttable(path: str) -> bool:
+    """Whether ``cut_fastq`` can cut ``path``: a plain FASTQ file. A gzip
+    stream (BGZF too) cannot be cut at a byte offset, stdin is read once,
+    and a FASTA record can be a chromosome."""
+    return (path != "-" and not path.endswith(".gz")
+            and sniff_format(path) == "fastq")
+
+
+def _skip_lines(arr: np.ndarray, n: int, off: int) -> tuple[int, int]:
+    """(bytes up to and including the last, newlines found) of the first
+    ``n`` newlines of ``arr[off:]``: the native memchr loop, else numpy."""
+    from zotpu_torch.io import native
+
+    got = native.skip_lines(arr, n, off)
+    if got is not None:
+        return got
+    nl = np.flatnonzero(arr[off:] == 0x0A)[:n]
+    return (int(nl[-1]) + 1 if len(nl) else 0), len(nl)
+
+
+def cut_fastq(path: str, records: int) -> Iterator[tuple[np.ndarray, int]]:
+    """Cut a plain FASTQ file (``cuttable``) into pieces of ``records``
+    records, the last of what is left: yields (the piece's bytes as a u8
+    array, the record id of its first record).
+
+    Reads the file in order, _chunk_bytes() at a time, and cuts after
+    every 4 * ``records`` newlines, as the parser groups lines into
+    records, so no record crosses a piece. A piece is a view into its
+    chunk; only one that straddles two chunks is copied. The last piece
+    gets the final newline the file may lack. ``parse_fastq_piece`` turns
+    a piece into batches, so pieces parse on several threads at once."""
+    lines = 4 * records
+    rec0 = 0
+    parts, have = [], 0  # a piece that straddles chunks, its newlines
+    for data in _iter_file_chunks(path):
+        arr = np.frombuffer(data, np.uint8)
+        off = 0
+        while True:
+            used, found = _skip_lines(arr, lines - have, off)
+            if have + found < lines:
                 break
-            carry = buf_b[end:]
+            piece = arr[off:off + used]
+            if parts:
+                piece = np.concatenate(parts + [piece])
+                parts, have = [], 0
+            yield piece, rec0
+            rec0 += records
+            off += used
+        if off < len(arr):
+            parts.append(arr[off:])
+            have += found
+    if parts:
+        if parts[-1][-1] != 0x0A:
+            parts.append(np.frombuffer(b"\n", np.uint8))
+        yield np.concatenate(parts), rec0
+
+
+def parse_fastq_piece(piece: np.ndarray, rec0: int, max_reads: int,
+                      max_len: int, halo: int = 0) -> Iterator[CodeBatch]:
+    """The batches of one piece of ``cut_fastq``, record ids from ``rec0``,
+    by the serial path's own parse (``_fastq_records``). A piece of
+    ``max_reads`` records with no read over ``max_len`` is one full batch:
+    the batch the serial path emits for those records. The last piece of a
+    file gives the serial path's last batch. A piece with an overlong read
+    is halo-chunked within itself and flushes its own partial batch, whose
+    rows the caller may join to other pieces' (workloads/kmerize.py)."""
+    em = _BatchEmitter(max_reads, max_len)
+    yield from _fastq_records(em, piece, rec0, max_reads, max_len, halo)
     yield from em.flush()
 
 

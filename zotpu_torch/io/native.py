@@ -73,6 +73,10 @@ def get_lib():
                 ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
                 ctypes.c_void_p, ctypes.c_void_p,
                 ctypes.POINTER(ctypes.c_int64), ctypes.POINTER(ctypes.c_int64)]
+            lib.zotpu_skip_lines.restype = ctypes.c_int64
+            lib.zotpu_skip_lines.argtypes = [
+                ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                ctypes.POINTER(ctypes.c_int64)]
             lib.zotpu_encode.restype = None
             lib.zotpu_encode.argtypes = [ctypes.c_void_p, ctypes.c_int64,
                                          ctypes.c_void_p]
@@ -131,3 +135,19 @@ def pack_wire(codes: np.ndarray):
         ctypes.c_int64(L),
         ctypes.c_void_p(packed.ctypes.data), ctypes.c_void_p(mask.ctypes.data))
     return packed, mask
+
+
+def skip_lines(buf: np.ndarray, n: int, offset: int = 0):
+    """Find the first ``n`` newlines of ``buf[offset:]`` (a contiguous u8
+    array) with the native memchr loop, out of the GIL. Returns (bytes up
+    to and including the last newline found, newlines found), or None if
+    the native library is unavailable."""
+    lib = get_lib()
+    if lib is None:
+        return None
+    found = ctypes.c_int64(0)
+    used = lib.zotpu_skip_lines(
+        ctypes.c_void_p(buf.ctypes.data + offset),
+        ctypes.c_int64(len(buf) - offset), ctypes.c_int64(n),
+        ctypes.byref(found))
+    return int(used), int(found.value)

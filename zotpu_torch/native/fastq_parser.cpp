@@ -76,6 +76,25 @@ int64_t zotpu_parse_fastq(const uint8_t* buf, int64_t len,
     return nreads;
 }
 
+// Find the first n newlines of buf[0..len) (a FASTQ record is 4 lines, as
+// zotpu_parse_fastq groups them, so n = 4 * records cuts at a record
+// boundary). found: newlines found (<= n). Returns the bytes up to and
+// including the last one found (0 if none). Like zotpu_parse_fastq, it is
+// called through ctypes, which releases the GIL for the scan.
+int64_t zotpu_skip_lines(const uint8_t* buf, int64_t len, int64_t n,
+                         int64_t* found) {
+    int64_t pos = 0;
+    int64_t lines = 0;
+    while (lines < n && pos < len) {
+        const void* nl = memchr(buf + pos, '\n', static_cast<size_t>(len - pos));
+        if (nl == nullptr) break;
+        pos = static_cast<const uint8_t*>(nl) - buf + 1;
+        ++lines;
+    }
+    *found = lines;
+    return pos;
+}
+
 // Encode arbitrary bytes -> codes (for FASTA bodies handled host-side).
 void zotpu_encode(const uint8_t* buf, int64_t len, uint8_t* out) {
     for (int64_t i = 0; i < len; ++i) out[i] = LUT[buf[i]];

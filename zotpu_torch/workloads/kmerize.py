@@ -188,18 +188,42 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
 
     stats.reads counts input RECORDS, not rows: halo-chunked overlong
     records span several rows (and possibly batches), deduplicated via
-    record_ids. The wire pack and pinning run in the prefetch thread, so
-    they overlap device work. With ``parallel`` several files parse in a
-    small worker pool (ZOTPU_PARSE_WORKERS overrides its size); batches of
-    different files then INTERLEAVE, which only a consumer that does not
-    depend on insertion order allows (the accumulator). Spill mode passes
-    parallel=False: its numbered run files must cover the same reads on
-    every run, or a resume would count reads twice."""
+    record_ids. The wire pack and pinning run in the parse threads, so they
+    overlap device work, and so does the record count but in the file pool.
+
+    With ``parallel`` the parse runs in a small worker pool of W threads
+    (ZOTPU_PARSE_WORKERS, else min(4, cores)); batches then INTERLEAVE,
+    which only a consumer that does not depend on insertion order allows
+    (the accumulator). With W files or more, each worker parses whole
+    files. With fewer, and every file a plain FASTQ file
+    (``fastq.cuttable``), the files are cut into pieces of ``batch_reads``
+    records (``fastq.cut_fastq``: one thread reads them in order) and the
+    workers parse the pieces, each into the batch that the serial path
+    emits for its records. A piece's partial batch (its file's last, or
+    one after a read longer than ``max_len``) goes through ``_Rejoin``, so
+    the batches are the serial path's in number and rows. The call counts
+    the pieces as ``parse.pieces`` (0 where nothing is cut). Spill mode
+    passes parallel=False: its numbered run files must cover the same
+    reads on every run, or a resume would count reads twice."""
+
+    def hosts(batches):
+        for batch in batches:
+            yield batch, host_tensors(batch, wire_pack, pin)
 
     def parse_one(path):
-        for batch in fastq.parse_batches(path, batch_reads, max_len,
-                                         halo=k - 1):
-            yield batch, host_tensors(batch, wire_pack, pin)
+        return hosts(fastq.parse_batches(path, batch_reads, max_len,
+                                         halo=k - 1))
+
+    def counted(items):
+        last_id = None  # kept per source: a file, or a piece
+        for batch, host in items:
+            n_rec, last_id = count(batch, last_id)
+            yield batch, host, n_rec
+
+    def parse_piece(f, piece, rec0):
+        for i, item in enumerate(counted(hosts(fastq.parse_fastq_piece(
+                piece, rec0, batch_reads, max_len, halo=k - 1)))):
+            yield (f,) + item + (i == 0,)
 
     def count(batch, last_id):
         rids = batch.record_ids[:batch.n_reads]
@@ -213,9 +237,32 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
         stats.reads += n_rec
         stats.bases += batch.bases
 
+    workers = int(os.environ.get("ZOTPU_PARSE_WORKERS",
+                                 min(4, os.cpu_count() or 1)))
+    metrics.count("parse.pieces", 0)
+    if parallel and len(paths) < workers and all(map(fastq.cuttable, paths)):
+        pieces = (functools.partial(parse_piece, f, *piece)
+                  for f, path in enumerate(paths)
+                  for piece in fastq.cut_fastq(path, batch_reads))
+        rejoin = _Rejoin(len(paths), batch_reads, max_len,
+                         lambda b: host_tensors(b, wire_pack, pin))
+        for _, (f, batch, host, n_rec, first) in prefetch_many(
+                pieces, workers=workers, depth=2 * workers):
+            if first:
+                metrics.count("parse.pieces", 1)
+            with metrics.span("account"):
+                stats.reads += n_rec
+                done = ([(batch, host)] if batch.n_reads == batch_reads
+                        else list(rejoin.add(f, batch, host)))
+            for batch, host in done:
+                account(batch, 0)
+                yield host
+        for batch, host in rejoin.flush():
+            account(batch, 0)
+            yield host
+        return
+
     if parallel and len(paths) > 1:
-        workers = int(os.environ.get("ZOTPU_PARSE_WORKERS",
-                                     min(4, os.cpu_count() or 1)))
         last_ids: dict[int, int] = {}
         for tag, (batch, host) in prefetch_many(
                 [functools.partial(parse_one, p) for p in paths],
@@ -228,15 +275,58 @@ def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
 
     def all_batches():
         for path in paths:
-            last_id = None
-            for batch, host in parse_one(path):
-                n_rec, last_id = count(batch, last_id)
-                yield batch, host, n_rec
+            yield from counted(parse_one(path))
 
     for batch, host, n_rec in prefetch(all_batches(), depth=2):
         with metrics.span("account"):
             account(batch, n_rec)
         yield host
+
+
+class _Rejoin:
+    """The partial batches of a cut file's pieces, joined into the serial
+    path's batches: a file's rows fill batches of ``batch_reads`` in order,
+    so a file gives ceil(rows / batch_reads) batches however it was cut.
+
+    A piece's batch is partial where it is its file's last, or where an
+    overlong read gave the piece more rows than one batch. A file's one
+    partial batch is kept as it came (the serial path's last batch, its
+    host tensors made in the worker); a second one sends the rows of both
+    into the file's emitter, and each batch completed there gets its host
+    tensors from ``to_host`` here. A batch's bases ride on its first row."""
+
+    def __init__(self, n_files, batch_reads, max_len, to_host):
+        self.ems = [fastq._BatchEmitter(batch_reads, max_len)
+                    for _ in range(n_files)]
+        self.lone: dict[int, tuple] = {}
+        self.to_host = to_host
+
+    def add(self, f, batch, host):
+        """Take a partial batch of file ``f``; yields (batch, host) of each
+        batch completed."""
+        em = self.ems[f]
+        if f not in self.lone and em.r == 0:
+            self.lone[f] = batch, host
+            return
+        if f in self.lone:
+            yield from self._rows(em, self.lone.pop(f)[0])
+        yield from self._rows(em, batch)
+
+    def _rows(self, em, b):
+        n = b.n_reads
+        bases = np.zeros(n, np.int64)
+        bases[0] = b.bases
+        for done in em.add_block(b.codes[:n], b.lengths[:n],
+                                 b.record_ids[:n], bases):
+            yield done, self.to_host(done)
+
+    def flush(self):
+        """Every file's last batch: (batch, host)."""
+        for f, em in enumerate(self.ems):
+            if f in self.lone:
+                yield self.lone.pop(f)
+            for done in em.flush():
+                yield done, self.to_host(done)
 
 
 def padding_host(rows: int, max_len: int, wire_pack: bool, pin: bool):
