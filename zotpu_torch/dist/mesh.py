@@ -31,7 +31,9 @@ Every exchanged tensor is int64 or int32 (gloo refuses uint64). The bytes
 this process sends to other processes are counted (``sent_bytes``), and
 apart from them the all-to-all rows each slot addresses to another slot,
 in any process or on any device (``slot_bytes``: the exchange's volume,
-which a single controller moves without a process boundary).
+which a single controller moves without a process boundary). While a
+profiler runs the same rows' bytes also go to the counter
+``exchange.bytes`` (``metrics.count``).
 """
 
 from __future__ import annotations
@@ -40,6 +42,8 @@ import math
 
 import torch
 import torch.distributed as dist
+
+from zotpu_torch import metrics
 
 _SENT = {"bytes": 0, "slot_bytes": 0}
 
@@ -144,8 +148,9 @@ class Mesh:
         local slot j, global sender s's row for j at [s * C, (s + 1) * C)."""
         D, L = self.size, len(self.devices)
         C = sends[0].shape[1]
-        _SENT["slot_bytes"] += (L * D * C * sends[0].element_size()
-                                * (D - 1) // D)
+        to_others = L * D * C * sends[0].element_size() * (D - 1) // D
+        _SENT["slot_bytes"] += to_others
+        metrics.count("exchange.bytes", to_others)
         if self.multi:
             P = self.process_count
             # [sender slot, dest process, dest slot] -> dest process first,

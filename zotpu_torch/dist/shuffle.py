@@ -35,6 +35,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from zotpu_torch import metrics
 from zotpu_torch import semantics as S
 from zotpu_torch.dist.mesh import shard_bits
 from zotpu_torch.kernels.join import row_hits_tagged
@@ -167,7 +168,9 @@ def _route(mesh, keys, k: int, capacity: int, payload=None,
     round: rows beyond a bucket's first capacity go into a second (D,
     capacity2) exchange. It runs iff some sender's first round left a
     valid row behind; that flag is read on the host, one sync per call
-    (JAX's ``lax.cond`` on the replicated ``psum``)."""
+    (JAX's ``lax.cond`` on the replicated ``psum``), in the span
+    ``route_sync``. Every sender's ``landed`` goes to the counter
+    ``exchange.valid_keys`` (the keys a slot routes to itself included)."""
     D = mesh.size
     p = shard_bits(D)
     plans = []
@@ -192,7 +195,8 @@ def _route(mesh, keys, k: int, capacity: int, payload=None,
     need2 = False
     if capacity2 > 0:
         left = mesh.psum([pl[3] - ok for pl, ok in zip(plans, n_ok)])[0]
-        need2 = bool(left > 0)
+        with metrics.span("route_sync"):
+            need2 = bool(left > 0)
     if need2:
         rk2, rp2 = exchange(capacity, capacity2)
         rkeys = [torch.cat([a, b]) for a, b in zip(rkeys, rk2)]
@@ -203,6 +207,9 @@ def _route(mesh, keys, k: int, capacity: int, payload=None,
     overflow = [pl[3] - ok for pl, ok in zip(plans, n_ok)]
     landed = [torch.clamp(v, max=capacity + capacity2)
               for _, _, v, _ in plans]
+    if metrics.tracing():
+        for x in landed:
+            metrics.count_device("exchange.valid_keys", x)
     return Routed(rkeys, rpay, overflow, need2, landed)
 
 
@@ -304,8 +311,11 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
     so one slot can exercise the skew path with a capacity factor below 1.
     When no sender overflows, the second round is skipped and the run
     holds the first round's D * cap slots. ``step.second_rounds`` counts
-    the calls that took the second round. The marked form
-    (``compact=False``) and ``_bench_no_dedup`` are not ported."""
+    the calls that took the second round. The tree's last level, K6, takes
+    every valid key the slot received, so that count goes to
+    ``tree.k6_keys_in`` here: K6's wrapper sees only the capacity. The
+    marked form (``compact=False``) and ``_bench_no_dedup`` are not
+    ported."""
     _check_step(k, read_len, wire, shard_hash)
     D = mesh.size
     p = shard_bits(D)
@@ -332,6 +342,7 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
         routed = mesh.psum(r.landed)
         out = []
         for d, rk in enumerate(r.keys):
+            received = routed[d][mesh.first + d]
             if mixed:
                 rk = _strip_owner(rk, k, p)
             if D == 1 and cap2 == 0:
@@ -340,9 +351,10 @@ def make_kmerize_step(mesh, k: int, reads_per_chip: int, read_len: int,
             elif use_tree:
                 run = merge_received_runs(rk, D, cap, cap2 if r.need2 else 0,
                                           dedup=True)
+                metrics.count_device("tree.k6_keys_in", received)
             else:
                 run = dedup_compact(torch.sort(rk).values)
-            out.append((*run, r.overflow[d], routed[d][mesh.first + d]))
+            out.append((*run, r.overflow[d], received))
         return out
 
     step.second_rounds = 0

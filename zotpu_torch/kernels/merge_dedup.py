@@ -19,14 +19,16 @@ unique keys and counts dense, so the merged array never reaches device
 memory and the sentinel capacity is not read; K2's closing kernel then
 ends each tile's last segment. The scratch is a few words per tile. On a
 CPU tensor the wrapper runs the plain version: a stable sort, then K2's
-plain version.
+plain version. A call counts its unique keys out as ``tree.k6_keys_out``
+(metrics.count_device); its valid keys in are found on the device, so
+the caller that knows them counts them (``dist/shuffle``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from zotpu_torch import _build
+from zotpu_torch import _build, metrics
 from zotpu_torch.kernels.sortdedup import dedup_compact_plain
 
 
@@ -46,10 +48,16 @@ def merge_dedup_pair(keys, nA: int):
     n = keys.shape[0]
     if not 0 <= nA <= n:
         raise ValueError(f"nA={nA} outside [0, {n}]")
-    if keys.device.type == "cpu":
-        return merge_dedup_plain(keys, nA)
-    if keys.device.type != "cuda":
+    if keys.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {keys.device}")
+    out = (merge_dedup_plain(keys, nA) if keys.device.type == "cpu"
+           else _merge_dedup_cuda(keys, nA))
+    metrics.count_device("tree.k6_keys_out", out[2])
+    return out
+
+
+def _merge_dedup_cuda(keys, nA: int):
+    n = keys.shape[0]
     ukeys = torch.empty_like(keys)
     counts = torch.empty_like(keys)
     n_out = torch.zeros((), dtype=torch.int64, device=keys.device)

@@ -23,14 +23,16 @@ in another order within an equal-key segment: compare (key, payload) as a
 multiset there. On a CPU tensor the wrapper runs the plain version (a
 stable ``torch.sort`` of each pair); on a CUDA tensor it launches the
 kernel or raises. ``KEYS_ONLY`` (K5) and ``WITH_PAYLOAD`` (K7) count the
-launches without and with a payload.
+launches without and with a payload. A K5 call counts its slots as
+``tree.k5_slots`` (metrics.count): it reads and writes each once, sentinel
+pads included.
 """
 
 from __future__ import annotations
 
 import torch
 
-from zotpu_torch import _build
+from zotpu_torch import _build, metrics
 
 
 class Launches:
@@ -74,6 +76,8 @@ def _check(keys, pay):
 
 def _merge(keys, pay, pair_len: int, a_len: int):
     _check(keys, pay)
+    if pay is None:
+        metrics.count("tree.k5_slots", keys.shape[0])
     if keys.device.type == "cpu":
         return merge_plain(keys, pay, pair_len, a_len)
     if keys.device.type != "cuda":

@@ -14,8 +14,8 @@ Spans and counters inside the program, for whoever runs a
   every thread sees only those of the thread that started it, so the
   workloads open them on the thread that drives the jobs.
 - ``count(name, n)`` adds a host number; ``count_device(name, t)`` keeps a
-  0-d device tensor, with no host sync and no device work; ``counters()``
-  sums them all (one sync a device).
+  device tensor, with no host sync and no device work; ``counters()``
+  sums them all, every element of each (one sync a device).
 
 Both record only while a profiler is enabled, and cost one flag check
 otherwise. ``count_load`` is the exception: a library loads once a
@@ -89,9 +89,9 @@ def count(name: str, n) -> None:
 
 
 def count_device(name: str, t: torch.Tensor) -> None:
-    """Add the one-element tensor ``t`` to counter ``name`` while a
-    profiler is enabled: it is kept, and ``counters()`` sums it, so the
-    device does no work and the host does not wait for it here."""
+    """Add the elements of the integer tensor ``t`` to counter ``name``
+    while a profiler is enabled: it is kept, and ``counters()`` sums it,
+    so the device does no work and the host does not wait for it here."""
     if tracing():
         with _lock:
             _device.setdefault(name, []).append(t)
@@ -116,9 +116,9 @@ def counters() -> dict:
     for name, ts in device:
         for t in ts:
             by_dev.setdefault(t.device, {}).setdefault(name, []).append(
-                t.reshape(()))
+                t.reshape(-1))
     for groups in by_dev.values():
-        sums = torch.stack([torch.stack(g).sum() for g in groups.values()])
+        sums = torch.stack([torch.cat(g).sum() for g in groups.values()])
         for name, v in zip(groups, sums.tolist()):
             out[name] = out.get(name, 0) + v
     return out
@@ -131,17 +131,21 @@ def reset_counters() -> None:
         _device.clear()
 
 
-def _alloc_calls(device) -> tuple[int, int]:
-    return (torch.cuda.memory_stats(device)["num_device_alloc"],
+def _alloc_calls(devices) -> tuple[int, int]:
+    return (sum(torch.cuda.memory_stats(d)["num_device_alloc"]
+                for d in devices),
             torch.cuda.host_memory_stats()["num_host_alloc"])
 
 
-def alloc_mark(device):
-    """The allocators' calls into CUDA so far (the device's
-    ``cudaMalloc``, pinned ``cudaHostAlloc``, from any thread), while a
-    profiler is enabled and ``device`` is a CUDA device; else None."""
-    if tracing() and torch.device(device).type == "cuda":
-        return device, _alloc_calls(device)
+def alloc_mark(*devices):
+    """The allocators' calls into CUDA so far (``cudaMalloc`` summed over
+    the distinct CUDA devices among ``devices``, pinned ``cudaHostAlloc``
+    once, from any thread), while a profiler is enabled and one of
+    ``devices`` is a CUDA device; else None."""
+    cuda = list(dict.fromkeys(d for d in map(torch.device, devices)
+                              if d.type == "cuda"))
+    if tracing() and cuda:
+        return cuda, _alloc_calls(cuda)
     return None
 
 
@@ -149,8 +153,8 @@ def count_allocs(mark) -> None:
     """Add the calls since ``alloc_mark`` to ``alloc.device`` and
     ``alloc.host``."""
     if mark is not None:
-        device, (d0, h0) = mark
-        d1, h1 = _alloc_calls(device)
+        devices, (d0, h0) = mark
+        d1, h1 = _alloc_calls(devices)
         count("alloc.device", d1 - d0)
         count("alloc.host", h1 - h0)
 

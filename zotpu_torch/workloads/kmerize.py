@@ -564,6 +564,7 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
     stats = stats if stats is not None else Stats()
     stats.n_chips = n_shards
     mesh = sharded_mesh(n_shards, device, devices)
+    allocs = metrics.alloc_mark(*mesh.devices)
     multi = mesh.multi
     L = len(mesh.devices)
     dev0 = mesh.devices[0]
@@ -614,7 +615,8 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
             with metrics.span("merge"):
                 acc.add(pending)
         uploads.wait(slots)
-        out = step(slots)
+        with metrics.span("step"):
+            out = step(slots)
         routed = add(routed, [o[4] for o in out])
         if use_acc:
             pending = [o[:3] for o in out]
@@ -670,4 +672,5 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
             [stats.reads, stats.bases], dtype=torch.int64,
             device=dev0)).tolist()
     stats.unique = len(keys)
+    metrics.count_allocs(allocs)
     return keys, counts
