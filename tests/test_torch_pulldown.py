@@ -60,6 +60,44 @@ def test_record_aggregator_matches_jax(case):
                              per_rec)
 
 
+def _batches(*spec):
+    """Batches of (row hits, record ids) from (ids, hits) lists."""
+    return [(np.asarray(h, np.int32), np.asarray(r, np.int64))
+            for r, h in spec]
+
+
+AGGREGATOR_CASES = {
+    "empty_first_and_middle": _batches(
+        ([], []), ([0, 0, 1], [3, 0, 2]), ([], []), ([1, 2, 2], [5, 0, 0]),
+        ([3], [0])),
+    "record_over_three_batches": _batches(
+        ([4, 5], [1, 2]), ([5, 5, 5], [7, 0, 9]), ([5], [4]),
+        ([5, 6, 7], [1, 0, 3])),
+    "one_row_batch": _batches(([0], [6]), ([0], [1]), ([1], [0])),
+    "58020_one_row_records": _batches(
+        (np.arange(58020),
+         np.random.default_rng(5).integers(0, 60, 58020))),
+    "result_twice": _batches(([0, 1, 1], [2, 0, 3]), ([1, 2], [4, 1])),
+}
+
+
+@pytest.mark.parametrize("case", AGGREGATOR_CASES.values(),
+                         ids=AGGREGATOR_CASES.keys())
+def test_record_aggregator_cases_match_jax(case):
+    """The port against the JAX package's class, with Python ints out;
+    ``result()`` is asked after every batch, so a record that continues
+    into the next batch is carried past a ``result()`` too."""
+    port, ref = TPD.RecordAggregator(), JPD.RecordAggregator()
+    for hits, rids in case:
+        port.add(hits, rids)
+        ref.add(hits, rids)
+        want = ref.result()
+        want = (want[0], want[1], list(want[2]))
+        got = port.result()
+        assert got == want and port.result() == want
+        assert all(type(v) is int for v in (got[0], got[1], *got[2]))
+
+
 @pytest.mark.parametrize("n", [0, 1, 5, 8, 9, 1000])
 def test_panel_to_device_matches_jax(n):
     rng = np.random.default_rng(n)

@@ -16,7 +16,7 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from zotpu_torch import cli as tcli
 from zotpu_torch import metrics
-from zotpu_torch.io import native
+from zotpu_torch.io import fastq, native
 from zotpu_torch.keys import SENTINEL
 from zotpu_torch.kernels import merge_fused, sortdedup
 from zotpu_torch.kernels.pack import pack_canonical_wire
@@ -131,7 +131,41 @@ def test_pulldown_spans_and_counters(data):
     host = sum(t.nbytes for _, _, h in TP._iter_scan_batches(
         paths, BATCH, MAX_LEN, K, True, False) for t in h)
     panel_bytes = TP.panel_to_device(panel, device="cpu").nbytes
-    assert got == {"h2d.bytes": host + panel_bytes}
+    # no read is longer than MAX_LEN: one row a record, none carried
+    assert got == {"h2d.bytes": host + panel_bytes,
+                   "aggregate.records": sum(150 + 20 * f for f in range(3)),
+                   "aggregate.carried": 0}
+
+
+def test_aggregate_counts_records_and_carried_records(data):
+    """At a max_len that halo-chunks the longer reads, a record's rows may
+    straddle two batches: ``aggregate.records`` counts every read once and
+    ``aggregate.carried`` each record continued into the next batch; with
+    no profiler neither is recorded."""
+    paths, panel = data
+    max_len = 64
+    split = 0
+    for path in paths:
+        last = None
+        for batch in fastq.parse_batches(path, BATCH, max_len, halo=K - 1):
+            ids = batch.record_ids[:batch.n_reads]
+            split += int(len(ids) > 0 and ids[0] == last)
+            last = ids[-1] if len(ids) else last
+    assert split > 0
+
+    def run():
+        return TP.pulldown_paths(panel, paths, K, batch_reads=BATCH,
+                                 max_len=max_len, device="cpu")
+
+    metrics.reset_counters()
+    want = run()
+    assert {name: v for name, v in metrics.counters().items()
+            if not name.startswith("load.")} == {}
+    got, _, counters = _profiled(run)
+    assert got == want
+    assert counters["aggregate.records"] == sum(len(r[2]) for r in got) \
+        == sum(150 + 20 * f for f in range(3))
+    assert counters["aggregate.carried"] == split
 
 
 def _dense(rng, n, hi):

@@ -1,11 +1,14 @@
 """Panel pulldown / scan workload (BASELINE config 5), single device.
 
 Port of zotpu/workloads/pulldown.py ``scan_batch``, ``scan_batch_wire``,
-``panel_to_device``, ``RecordAggregator`` and ``pulldown_paths``. The panel
-lives on the device as a sorted SENTINEL-padded int64 tensor. Per batch the
-device runs the pack kernel (K1; the wire form when ``max_len % 32 == 0``,
-u8 codes otherwise) and the membership join (K4), and only the per-row hit
-counts come back to the host, where rows re-aggregate into records.
+``panel_to_device`` and ``pulldown_paths``. The panel lives on the device
+as a sorted SENTINEL-padded int64 tensor. Per batch the device runs the
+pack kernel (K1; the wire form when ``max_len % 32 == 0``, u8 codes
+otherwise) and the membership join (K4), and only the per-row hit counts
+come back to the host, where rows re-aggregate into records
+(``RecordAggregator``: a vectorised counterpart of the JAX package's, with
+equal results, so the driving thread holds the GIL that the parse thread
+needs for a few array operations a batch, not a Python loop over records).
 
 One prefetched stream runs over every sample, so parsing the next sample
 overlaps the device work of this one. On CUDA each batch goes up from
@@ -76,28 +79,45 @@ class RecordAggregator:
     Overlong records are halo-chunked into several rows (possibly spanning
     batch boundaries), and counting rows would overstate reads_with_hits /
     misalign per-read output. Chunk halos never duplicate a k-mer start
-    position, so summing row hits per record is exact. (A copy of
-    zotpu.workloads.pulldown.RecordAggregator, whose module imports jax.)"""
+    position, so summing row hits per record is exact.
+
+    A vectorised counterpart of zotpu.workloads.pulldown.RecordAggregator
+    (whose module imports jax), with equal results. It relies on record ids
+    that never decrease, within a batch and from one batch to the next, as
+    ``fastq.parse_batches`` yields them: a record's rows are one run of
+    equal ids, and only a batch's first record can continue the previous
+    batch's last. Each batch's per-record sums stay an array until
+    ``result()``; the counters ``aggregate.records`` (records a batch
+    starts) and ``aggregate.carried`` (1 where its first record continues
+    the previous non-empty batch's last) say how much work that was."""
 
     def __init__(self):
-        self.per_read: list[int] = []
+        self._sums: list[np.ndarray] = []   # non-empty int64 chunks
         self._last_id = -1
 
     def add(self, row_hits: np.ndarray, record_ids: np.ndarray) -> None:
-        # record_ids are non-decreasing; reduce rows -> records in the batch
-        uniq, inv = np.unique(record_ids, return_inverse=True)
-        sums = np.bincount(inv, weights=row_hits).astype(np.int64)
-        for rid, hsum in zip(uniq, sums):
-            if self.per_read and rid == self._last_id:
-                self.per_read[-1] += int(hsum)  # record spans batches
-            else:
-                self.per_read.append(int(hsum))
-                self._last_id = int(rid)
+        if len(record_ids) == 0:
+            return
+        ids = np.asarray(record_ids)
+        starts = np.flatnonzero(np.concatenate(([True], ids[1:] != ids[:-1])))
+        sums = np.add.reduceat(np.asarray(row_hits), starts, dtype=np.int64)
+        carried = bool(self._sums) and ids[0] == self._last_id
+        if carried:     # the record spans batches
+            self._sums[-1][-1] += sums[0]
+            sums = sums[1:]
+        if len(sums):
+            self._sums.append(sums)
+        self._last_id = ids[-1]
+        metrics.count("aggregate.records", len(sums))
+        metrics.count("aggregate.carried", int(carried))
 
     def result(self) -> tuple[int, int, list[int]]:
-        total = sum(self.per_read)
-        reads_hit = sum(1 for h in self.per_read if h > 0)
-        return total, reads_hit, self.per_read
+        """(total hits, records with a hit, every record's hits)."""
+        if len(self._sums) > 1:
+            self._sums = [np.concatenate(self._sums)]
+        per_read = self._sums[0] if self._sums else np.zeros(0, np.int64)
+        return (int(per_read.sum()), int(np.count_nonzero(per_read > 0)),
+                per_read.tolist())
 
 
 def _iter_scan_batches(paths, batch_reads, max_len, k, wire_pack, pin):
