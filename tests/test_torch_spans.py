@@ -20,7 +20,7 @@ from zotpu_torch.io import fastq, native
 from zotpu_torch.keys import SENTINEL
 from zotpu_torch.kernels import merge_fused, sortdedup
 from zotpu_torch.kernels.pack import pack_canonical_wire
-from zotpu_torch.workloads import accumulator
+from zotpu_torch.workloads import accumulator, staging
 from zotpu_torch.workloads import kmerize as TW
 from zotpu_torch.workloads import pulldown as TP
 
@@ -214,7 +214,7 @@ def test_kernel_counters_equal_plain_calls():
 def test_upload_counts_the_tensors_bytes():
     host = (torch.zeros((3, 8), dtype=torch.int32),
             torch.zeros(5, dtype=torch.uint8), torch.zeros(2))
-    _, spans, got = _profiled(lambda: TW.upload(host, "cpu", None))
+    _, spans, got = _profiled(lambda: staging.Stager("cpu").upload(host))
     assert spans == {"upload": 1}
     assert got == {"h2d.bytes": 96 + 5 + 8}
 

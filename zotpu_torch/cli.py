@@ -300,7 +300,7 @@ def _binary_setop(args, op):
             args.a, args.b, op, n_shards, device=device)
         if _multi(args):
             from zotpu_torch.dist import shuffle
-            from zotpu_torch.workloads.kmerize import sharded_mesh
+            from zotpu_torch.dist.mesh import sharded_mesh
             keys, counts = shuffle.allgather_host_sets(
                 sharded_mesh(n_shards, device), keys, counts)
         if host_id == 0:

@@ -262,3 +262,36 @@ def multi_controller() -> bool:
     """True inside a multi-controller run (a process group of two or more
     processes exists): the sharded workloads then build ``process_mesh``."""
     return dist.is_initialized() and dist.get_world_size() > 1
+
+
+def sharded_mesh(n_shards: int, device="cuda", devices=None) -> Mesh:
+    """The mesh of a sharded run: in a multi-controller run n_shards
+    global slots over the processes (``process_mesh`` on ``device``);
+    otherwise ``devices`` as given (several slots may share a card), else
+    n_shards slots of ``device``; more slots than visible cards raise as the
+    JAX package does."""
+    if multi_controller():
+        return process_mesh(n_shards, device)
+    if devices is None and torch.device(device).type == "cuda":
+        n_dev = torch.cuda.device_count()
+        if n_shards > n_dev:
+            raise ValueError(f"--shards {n_shards} exceeds the {n_dev} "
+                             f"available device(s)")
+    return make_mesh(n_shards, device=device, devices=devices)
+
+
+def lockstep(mesh: Mesh, items, pad):
+    """``items`` as they come, in step with the other processes of a
+    multi-controller mesh: a process whose items run out yields ``pad``
+    until every process is drained. One reduction a batch decides it, so
+    every process takes the same number of (collective) steps."""
+    if not mesh.multi:
+        yield from items
+        return
+    it = iter(items)
+    flag = torch.zeros((), dtype=torch.int64, device=mesh.devices[0])
+    while True:
+        item = next(it, None)
+        if not int(mesh.allreduce(flag + (item is not None), "max")):
+            return
+        yield pad if item is None else item

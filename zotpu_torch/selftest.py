@@ -64,10 +64,10 @@ def _slots(device, devices) -> list[torch.device]:
 def _wire_inputs(codes: np.ndarray, lengths: np.ndarray, dev):
     """(rows, L) u8 codes -> the step's wire input tuple on ``dev``, as
     the kmerize path packs and uploads a batch."""
-    from zotpu_torch.workloads import kmerize as WK
+    from zotpu_torch.workloads import feed
     batch = types.SimpleNamespace(codes=codes, lengths=lengths)
-    return WK.upload(WK.host_tensors(batch, wire_pack=True, pin=False), dev,
-                     None)
+    return tuple(t.to(dev) for t in feed.host_tensors(batch, wire_pack=True,
+                                                      pin=False))
 
 
 def _dense_set(out):

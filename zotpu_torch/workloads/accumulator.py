@@ -25,6 +25,7 @@ import torch
 
 from zotpu_torch import keys as K
 from zotpu_torch.kernels.merge_fused import set_op_fused
+from zotpu_torch.workloads.staging import to_host
 
 
 class CapacityError(ValueError):
@@ -107,25 +108,6 @@ class DeviceAccumulator:
                 f"{overflow}; rerun with a larger --merge-capacity")
         keys, counts = to_host([entry[0][:n], entry[1][:n]])
         return K.to_numpy_set(keys, counts, n)
-
-
-def to_host(parts):
-    """Copy device tensors to the host, CUDA ones into one pinned buffer
-    (a slice each) behind one synchronize of each device; returns host
-    tensors."""
-    devices = {t.device for t in parts if t.is_cuda}
-    if not devices:
-        return [t.cpu() for t in parts]
-    buf = torch.empty(sum(t.shape[0] for t in parts), dtype=torch.int64,
-                      pin_memory=True)
-    out, off = [], 0
-    for t in parts:
-        out.append(buf[off:off + t.shape[0]])
-        out[-1].copy_(t, non_blocking=True)
-        off += t.shape[0]
-    for dev in devices:
-        torch.cuda.synchronize(dev)
-    return out
 
 
 class ShardedAccumulator:

@@ -3,16 +3,16 @@
 Port of zotpu/workloads/kmerize.py: ``kmerize_paths`` and
 ``kmerize_paths_sharded`` in accumulator and in spill mode, with
 ``_iter_batches``, ``Stats``, ``merge_runs`` and the spill-run checks. The
-host side is the port's copy of the shared code: ``fastq.parse_batches``
-(halo = k-1), ``prefetch`` and the 2-bit wire pack ``wire.pack_codes``. Per
-batch the device runs the pack kernel (K1; the wire form when ``max_len %
-32 == 0``, u8 codes otherwise), ``torch.sort``, the dedup-compact kernel
-(K2), and the accumulator's fused merges (K3). The result crosses to the
-host once, at the end.
+batches and their host tensors come from the host feed
+(workloads/feed.py: ``fastq.parse_batches`` with halo = k-1, the 2-bit
+wire pack ``wire.pack_codes``, the parse pool) and go up through the
+stagers (workloads/staging.py). Per batch the device runs the pack kernel
+(K1; the wire form when ``max_len % 32 == 0``, u8 codes otherwise),
+``torch.sort``, the dedup-compact kernel (K2), and the accumulator's fused
+merges (K3). The result crosses to the host once, at the end.
 
-On CUDA each batch is copied from pinned host memory on a side stream with
-``non_blocking=True``, and the copy starts before the previous batch's
-merges are enqueued, so the two overlap.
+On CUDA each batch's upload starts before the previous batch's merges are
+enqueued, so the two overlap.
 
 ``kmerize_paths_sharded`` ports the sharded path: each batch's rows split
 over the mesh's slots, the sharded step (dist/shuffle.py) routes every
@@ -36,7 +36,6 @@ batch as ``run{batch:06d}.p{process}.zkf``.
 from __future__ import annotations
 
 import dataclasses
-import functools
 import os
 
 import numpy as np
@@ -45,15 +44,16 @@ import torch
 from zotpu_torch import metrics
 from zotpu_torch import semantics as S
 from zotpu_torch import keys as K
-from zotpu_torch.io import container, fastq, wire
-from zotpu_torch.io.prefetch import prefetch, prefetch_many
+from zotpu_torch.io import container
 from zotpu_torch.dist import shuffle
-from zotpu_torch.dist.mesh import make_mesh, multi_controller, process_mesh
+from zotpu_torch.dist.mesh import lockstep, sharded_mesh
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.kernels.sortdedup import kmer_sort_dedup
 from zotpu_torch.reference_impl import golden as G
+from zotpu_torch.workloads import feed, setops
 from zotpu_torch.workloads.accumulator import (DeviceAccumulator,
-                                               ShardedAccumulator, to_host)
+                                               ShardedAccumulator)
+from zotpu_torch.workloads.staging import Stager, Stagers, to_host
 
 
 @dataclasses.dataclass
@@ -94,8 +94,7 @@ def merge_runs(runs: list[tuple[np.ndarray, np.ndarray]],
         return np.empty(0, np.uint64), np.empty(0, S.COUNT_DTYPE)
     total = sum(len(r[0]) for r in runs)
     if not force_host and total >= DEVICE_MERGE_THRESHOLD:
-        from zotpu_torch.workloads.setops import merge_tree_device
-        return merge_tree_device(runs, device=device)
+        return setops.merge_tree_device(runs, device=device)
     while len(runs) > 1:
         nxt = []
         for i in range(0, len(runs) - 1, 2):
@@ -110,248 +109,22 @@ class Interrupted(RuntimeError):
     """Raised by the fault-injection hook to simulate a mid-run crash."""
 
 
-def host_tensors(batch, wire_pack: bool, pin: bool):
-    """A parsed batch as host tensors: (packed, mask, lengths) wire words
-    (u32 bit patterns as int32) or (codes, lengths); pinned when ``pin``."""
-    if wire_pack:
-        packed, mask = wire.pack_codes(batch.codes)
-        arrays = (packed.view(np.int32), mask.view(np.int32), batch.lengths)
-    else:
-        arrays = (batch.codes, batch.lengths)
-    ts = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrays)
-    return tuple(t.pin_memory() for t in ts) if pin else ts
-
-
-def upload(host, device, copy_stream):
-    """Start copying host tensors to ``device`` on ``copy_stream`` (None on
-    the CPU, where the tensors are returned as they are). Counts their
-    bytes as ``h2d.bytes``."""
-    if metrics.tracing():
-        metrics.count("h2d.bytes", sum(t.nbytes for t in host))
-    with metrics.span("upload"):
-        if copy_stream is None:
-            return tuple(t.to(device) for t in host)
-        with torch.cuda.stream(copy_stream):
-            return tuple(t.to(device, non_blocking=True) for t in host)
-
-
-def await_upload(tensors, device, copy_stream) -> None:
-    """Make the compute stream of ``device`` wait for an upload."""
-    if copy_stream is None:
-        return
-    with metrics.span("upload"):
-        compute = torch.cuda.current_stream(device)
-        compute.wait_stream(copy_stream)
-        for t in tensors:
-            t.record_stream(compute)
-
-
-class SlotUploads:
-    """Per-slot uploads of a batch's host tensors: slot d takes rows
-    [d * R, (d + 1) * R) of each, on a copy stream of its device."""
-
-    def __init__(self, mesh, rows_per_slot: int):
-        self.mesh, self.rows = mesh, rows_per_slot
-        self.streams = {dev: torch.cuda.Stream(dev) if dev.type == "cuda"
-                        else None for dev in mesh.devices}
-
-    def start(self, host):
-        R = self.rows
-        return [upload(tuple(t[d * R:(d + 1) * R] for t in host), dev,
-                       self.streams[dev])
-                for d, dev in enumerate(self.mesh.devices)]
-
-    def wait(self, slots) -> None:
-        for ts, dev in zip(slots, self.mesh.devices):
-            await_upload(ts, dev, self.streams[dev])
-
-
-def sharded_mesh(n_shards: int, device="cuda", devices=None):
-    """The mesh of a sharded run: in a multi-controller run n_shards
-    global slots over the processes (``process_mesh`` on ``device``);
-    otherwise ``devices`` as given (several slots may share a card), else
-    n_shards slots of ``device``; more slots than visible cards raise as the
-    JAX package does."""
-    if multi_controller():
-        return process_mesh(n_shards, device)
-    if devices is None and torch.device(device).type == "cuda":
-        n_dev = torch.cuda.device_count()
-        if n_shards > n_dev:
-            raise ValueError(f"--shards {n_shards} exceeds the {n_dev} "
-                             f"available device(s)")
-    return make_mesh(n_shards, device=device, devices=devices)
-
-
 def _iter_batches(paths, batch_reads, max_len, k, stats, wire_pack=False,
                   pin=False, parallel=True):
-    """Prefetched stream of each batch's host tensors; updates stats.
-
-    stats.reads counts input RECORDS, not rows: halo-chunked overlong
-    records span several rows (and possibly batches), deduplicated via
-    record_ids. The wire pack and pinning run in the parse threads, so they
-    overlap device work, and so does the record count but in the file pool.
-
-    With ``parallel`` the parse runs in a small worker pool of W threads
-    (ZOTPU_PARSE_WORKERS, else min(4, cores)); batches then INTERLEAVE,
-    which only a consumer that does not depend on insertion order allows
-    (the accumulator). With W files or more, each worker parses whole
-    files. With fewer, and every file a plain FASTQ file
-    (``fastq.cuttable``), the files are cut into pieces of ``batch_reads``
-    records (``fastq.cut_fastq``: one thread reads them in order) and the
-    workers parse the pieces, each into the batch that the serial path
-    emits for its records. A piece's partial batch (its file's last, or
-    one after a read longer than ``max_len``) goes through ``_Rejoin``, so
-    the batches are the serial path's in number and rows. The call counts
-    the pieces as ``parse.pieces`` (0 where nothing is cut). Spill mode
+    """Each batch's host tensors from the host feed (``feed.batches``),
+    with its records (not rows), rows and bases added to ``stats`` in the
+    span ``account``. The call counts ``parse.pieces`` from 0. Spill mode
     passes parallel=False: its numbered run files must cover the same
     reads on every run, or a resume would count reads twice."""
-
-    def hosts(batches):
-        for batch in batches:
-            yield batch, host_tensors(batch, wire_pack, pin)
-
-    def parse_one(path):
-        return hosts(fastq.parse_batches(path, batch_reads, max_len,
-                                         halo=k - 1))
-
-    def counted(items):
-        last_id = None  # kept per source: a file, or a piece
-        for batch, host in items:
-            n_rec, last_id = count(batch, last_id)
-            yield batch, host, n_rec
-
-    def parse_piece(f, piece, rec0):
-        for i, item in enumerate(counted(hosts(fastq.parse_fastq_piece(
-                piece, rec0, batch_reads, max_len, halo=k - 1)))):
-            yield (f,) + item + (i == 0,)
-
-    def count(batch, last_id):
-        rids = batch.record_ids[:batch.n_reads]
-        n_rec = len(np.unique(rids))
-        if n_rec and last_id is not None and rids[0] == last_id:
-            n_rec -= 1  # first record continues from the previous batch
-        return n_rec, (int(rids[-1]) if len(rids) else last_id)
-
-    def account(batch, n_rec):
-        stats.batches += 1
-        stats.reads += n_rec
-        stats.bases += batch.bases
-
-    workers = int(os.environ.get("ZOTPU_PARSE_WORKERS",
-                                 min(4, os.cpu_count() or 1)))
     metrics.count("parse.pieces", 0)
-    if parallel and len(paths) < workers and all(map(fastq.cuttable, paths)):
-        pieces = (functools.partial(parse_piece, f, *piece)
-                  for f, path in enumerate(paths)
-                  for piece in fastq.cut_fastq(path, batch_reads))
-        rejoin = _Rejoin(len(paths), batch_reads, max_len,
-                         lambda b: host_tensors(b, wire_pack, pin))
-        for _, (f, batch, host, n_rec, first) in prefetch_many(
-                pieces, workers=workers, depth=2 * workers):
-            if first:
-                metrics.count("parse.pieces", 1)
-            with metrics.span("account"):
-                stats.reads += n_rec
-                done = ([(batch, host)] if batch.n_reads == batch_reads
-                        else list(rejoin.add(f, batch, host)))
-            for batch, host in done:
-                account(batch, 0)
-                yield host
-        for batch, host in rejoin.flush():
-            account(batch, 0)
-            yield host
-        return
-
-    if parallel and len(paths) > 1:
-        last_ids: dict[int, int] = {}
-        for tag, (batch, host) in prefetch_many(
-                [functools.partial(parse_one, p) for p in paths],
-                workers=workers, depth=2 * max(workers, 1)):
-            with metrics.span("account"):
-                n_rec, last_ids[tag] = count(batch, last_ids.get(tag))
-                account(batch, n_rec)
-            yield host
-        return
-
-    def all_batches():
-        for path in paths:
-            yield from counted(parse_one(path))
-
-    for batch, host, n_rec in prefetch(all_batches(), depth=2):
+    for _, batch, host, n_rec in feed.batches(
+            paths, batch_reads, max_len, k, wire_pack=wire_pack, pin=pin,
+            parallel=parallel):
         with metrics.span("account"):
-            account(batch, n_rec)
+            stats.batches += 1
+            stats.reads += n_rec
+            stats.bases += batch.bases
         yield host
-
-
-class _Rejoin:
-    """The partial batches of a cut file's pieces, joined into the serial
-    path's batches: a file's rows fill batches of ``batch_reads`` in order,
-    so a file gives ceil(rows / batch_reads) batches however it was cut.
-
-    A piece's batch is partial where it is its file's last, or where an
-    overlong read gave the piece more rows than one batch. A file's one
-    partial batch is kept as it came (the serial path's last batch, its
-    host tensors made in the worker); a second one sends the rows of both
-    into the file's emitter, and each batch completed there gets its host
-    tensors from ``to_host`` here. A batch's bases ride on its first row."""
-
-    def __init__(self, n_files, batch_reads, max_len, to_host):
-        self.ems = [fastq._BatchEmitter(batch_reads, max_len)
-                    for _ in range(n_files)]
-        self.lone: dict[int, tuple] = {}
-        self.to_host = to_host
-
-    def add(self, f, batch, host):
-        """Take a partial batch of file ``f``; yields (batch, host) of each
-        batch completed."""
-        em = self.ems[f]
-        if f not in self.lone and em.r == 0:
-            self.lone[f] = batch, host
-            return
-        if f in self.lone:
-            yield from self._rows(em, self.lone.pop(f)[0])
-        yield from self._rows(em, batch)
-
-    def _rows(self, em, b):
-        n = b.n_reads
-        bases = np.zeros(n, np.int64)
-        bases[0] = b.bases
-        for done in em.add_block(b.codes[:n], b.lengths[:n],
-                                 b.record_ids[:n], bases):
-            yield done, self.to_host(done)
-
-    def flush(self):
-        """Every file's last batch: (batch, host)."""
-        for f, em in enumerate(self.ems):
-            if f in self.lone:
-                yield self.lone.pop(f)
-            for done in em.flush():
-                yield done, self.to_host(done)
-
-
-def padding_host(rows: int, max_len: int, wire_pack: bool, pin: bool):
-    """The host tensors of an all-padding batch (INVALID codes, zero
-    lengths; in the wire form too): what a drained process feeds."""
-    return host_tensors(fastq.CodeBatch(
-        codes=np.full((rows, max_len), S.INVALID_CODE, np.uint8),
-        lengths=np.zeros(rows, np.int32), n_reads=0), wire_pack, pin)
-
-
-def lockstep(mesh, items, pad):
-    """``items`` as they come, in step with the other processes of a
-    multi-controller mesh: a process whose items run out yields ``pad``
-    until every process is drained. One reduction a batch decides it, so
-    every process takes the same number of (collective) steps."""
-    if not mesh.multi:
-        yield from items
-        return
-    it = iter(items)
-    flag = torch.zeros((), dtype=torch.int64, device=mesh.devices[0])
-    while True:
-        item = next(it, None)
-        if not int(mesh.allreduce(flag + (item is not None), "max")):
-            return
-        yield pad if item is None else item
 
 
 def _iter_global_batches(paths, mesh, reads_per_chip, max_len, k, stats,
@@ -364,7 +137,7 @@ def _iter_global_batches(paths, mesh, reads_per_chip, max_len, k, stats,
     rows = reads_per_chip * len(mesh.devices)
     return lockstep(mesh, _iter_batches(
         paths, rows, max_len, k, stats, wire_pack=wire_pack, pin=pin,
-        parallel=parallel), padding_host(rows, max_len, wire_pack, pin)
+        parallel=parallel), feed.padding_host(rows, max_len, wire_pack, pin)
         if mesh.multi else None)
 
 
@@ -446,8 +219,7 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
     device = torch.device(device)
     allocs = metrics.alloc_mark(device)
     stats = stats if stats is not None else Stats()
-    on_cuda = device.type == "cuda"
-    copy_stream = torch.cuda.Stream(device) if on_cuda else None
+    stager = Stager(device)
     wire_pack = max_len % 32 == 0  # striped wire words need 32 | L
     use_acc = spill_dir is None
     acc: DeviceAccumulator | None = None
@@ -477,8 +249,8 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
             runs.append((keys, cnts))
 
     for host in _iter_batches(paths, batch_reads, max_len, k, stats,
-                              wire_pack=wire_pack, pin=on_cuda,
-                              parallel=use_acc):
+                              wire_pack=wire_pack,
+                              pin=device.type == "cuda", parallel=use_acc):
         batch_no += 1
         run_path = (os.path.join(spill_dir, f"run{batch_no:06d}.zkf")
                     if spill_dir is not None else None)
@@ -498,10 +270,10 @@ def kmerize_paths(paths: list[str], k: int, batch_reads: int = 4096,
         # Start this batch's upload, enqueue the previous batch's merges
         # (or write its run) while it flies, then run this batch's step on
         # the uploaded inputs.
-        dev = upload(host, device, copy_stream)
+        dev = stager.upload(host)
         if pending is not None:
             consume(pending)
-        await_upload(dev, device, copy_stream)
+        stager.wait(dev)
         with metrics.span("step"):
             if wire_pack:
                 keys = pack_canonical_wire(*dev, k)
@@ -577,7 +349,7 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
         force_second_round=force_second_round)
     acc = ShardedAccumulator(mesh.devices, cap_out, max_cap=merge_capacity,
                              mesh=mesh)
-    uploads = SlotUploads(mesh, reads_per_chip)
+    stagers = Stagers(mesh, reads_per_chip)
     pin = any(d.type == "cuda" for d in mesh.devices)
     overflow = routed = pending = None
     runs: list[tuple[np.ndarray, np.ndarray]] = []
@@ -610,11 +382,11 @@ def kmerize_paths_sharded(paths: list[str], k: int, n_shards: int,
                 continue
         if fail_after_batches is not None and batch_no > fail_after_batches:
             raise Interrupted(f"injected failure before batch {batch_no}")
-        slots = uploads.start(host)
+        slots = stagers.upload(host)
         if pending is not None:
             with metrics.span("merge"):
                 acc.add(pending)
-        uploads.wait(slots)
+        stagers.wait(slots)
         with metrics.span("step"):
             out = step(slots)
         routed = add(routed, [o[4] for o in out])

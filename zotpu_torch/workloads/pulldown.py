@@ -10,11 +10,12 @@ come back to the host, where rows re-aggregate into records
 equal results, so the driving thread holds the GIL that the parse thread
 needs for a few array operations a batch, not a Python loop over records).
 
-One prefetched stream runs over every sample, so parsing the next sample
-overlaps the device work of this one. On CUDA each batch goes up from
-pinned host memory on a side stream (as in workloads/kmerize.py), and its
-row hits come down into pinned memory behind an event; the host aggregates
-batch i-1 while the card works on batch i.
+One stream of the host feed (workloads/feed.py, in sample order) runs over
+every sample, so parsing the next sample overlaps the device work of this
+one. Each batch goes up through a stager (workloads/staging.py: on CUDA
+from pinned host memory on a copy stream), and its row hits come down into
+pinned memory behind an event; the host aggregates batch i-1 while the
+card works on batch i.
 
 ``pulldown_paths_sharded`` ports the hash-sharded scan: the panel is
 partitioned over the mesh's slots by the same owner function as the
@@ -31,16 +32,13 @@ import numpy as np
 import torch
 
 from zotpu_torch import metrics
-from zotpu_torch.io import fastq
-from zotpu_torch.io.prefetch import prefetch
 from zotpu_torch.dist import shuffle
+from zotpu_torch.dist.mesh import lockstep, sharded_mesh
 from zotpu_torch.kernels.join import row_hits_sorted_join
 from zotpu_torch.kernels.pack import pack_canonical, pack_canonical_wire
 from zotpu_torch.keys import SENTINEL
-from zotpu_torch.workloads.kmerize import (SlotUploads, await_upload,
-                                           host_tensors, lockstep,
-                                           padding_host, sharded_mesh,
-                                           upload)
+from zotpu_torch.workloads import feed
+from zotpu_torch.workloads.staging import Stager, Stagers
 
 
 def scan_batch(codes, lengths, panel, k: int):
@@ -99,7 +97,7 @@ class RecordAggregator:
         if len(record_ids) == 0:
             return
         ids = np.asarray(record_ids)
-        starts = np.flatnonzero(np.concatenate(([True], ids[1:] != ids[:-1])))
+        starts = feed.record_starts(ids)
         sums = np.add.reduceat(np.asarray(row_hits), starts, dtype=np.int64)
         carried = bool(self._sums) and ids[0] == self._last_id
         if carried:     # the record spans batches
@@ -121,28 +119,11 @@ class RecordAggregator:
 
 
 def _iter_scan_batches(paths, batch_reads, max_len, k, wire_pack, pin):
-    """Prefetched (sample index, batch, host tensors) over every sample;
-    the wire pack and pinning run in the prefetch thread."""
-
-    def gen():
-        for idx, path in enumerate(paths):
-            for batch in fastq.parse_batches(path, batch_reads, max_len,
-                                             halo=k - 1):
-                yield idx, batch, host_tensors(batch, wire_pack, pin)
-
-    return prefetch(gen(), depth=2)
-
-
-def _download(t):
-    """Start copying a device tensor into pinned host memory; returns the
-    host tensor and an event to wait on (None on the CPU)."""
-    if not t.is_cuda:
-        return t, None
-    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-    host.copy_(t, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record(torch.cuda.current_stream(t.device))
-    return host, done
+    """(sample index, batch, host tensors) over every sample in order: the
+    host feed on one prefetch thread, where the wire pack and pinning
+    run."""
+    return ((idx, batch, host) for idx, batch, host, _ in feed.batches(
+        paths, batch_reads, max_len, k, wire_pack=wire_pack, pin=pin))
 
 
 def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
@@ -151,10 +132,9 @@ def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
     """Per-sample (total_hits, reads_with_hits, per_read_hits list)."""
     device = torch.device(device)
     allocs = metrics.alloc_mark(device)
-    on_cuda = device.type == "cuda"
     panel = panel_to_device(panel_keys, device=device)
     wire_pack = max_len % 32 == 0
-    copy_stream = torch.cuda.Stream(device) if on_cuda else None
+    stager = Stager(device)
     aggs = [RecordAggregator() for _ in sample_paths]
     pending = None
 
@@ -167,15 +147,16 @@ def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
             aggs[idx].add(hits.numpy()[:n], batch.record_ids[:n])
 
     for idx, batch, host in _iter_scan_batches(
-            sample_paths, batch_reads, max_len, k, wire_pack, on_cuda):
-        dev = upload(host, device, copy_stream)
-        await_upload(dev, device, copy_stream)
+            sample_paths, batch_reads, max_len, k, wire_pack,
+            device.type == "cuda"):
+        dev = stager.upload(host)
+        stager.wait(dev)
         with metrics.span("step"):
             if wire_pack:
                 hits = scan_batch_wire(*dev, panel, k)
             else:
                 hits = scan_batch(*dev, panel, k)
-            hits, done = _download(hits)
+            hits, done = stager.download(hits)
         if pending is not None:
             finish(*pending)
         pending = (idx, batch, hits, done)
@@ -219,7 +200,7 @@ def pulldown_paths_sharded(panel_keys: np.ndarray, sample_paths: list[str],
     step = shuffle.make_pulldown_step(mesh, k, reads_per_chip, max_len,
                                       capacity_factor=capacity_factor,
                                       wire=wire_pack, shard_hash=shard_hash)
-    uploads = SlotUploads(mesh, reads_per_chip)
+    stagers = Stagers(mesh, reads_per_chip)
     pin = any(d.type == "cuda" for d in mesh.devices)
     mine = range(mesh.process_index, len(sample_paths), mesh.process_count)
     aggs = {idx: RecordAggregator() for idx in mine}
@@ -238,15 +219,15 @@ def pulldown_paths_sharded(panel_keys: np.ndarray, sample_paths: list[str],
 
     stream = _iter_scan_batches([sample_paths[i] for i in mine], rows,
                                 max_len, k, wire_pack, pin)
-    pad = ((None, None, padding_host(rows, max_len, wire_pack, pin))
+    pad = ((None, None, feed.padding_host(rows, max_len, wire_pack, pin))
            if mesh.multi else None)
     for j, batch, host in lockstep(mesh, stream, pad):
-        slots = uploads.start(host)
-        uploads.wait(slots)
+        slots = stagers.upload(host)
+        stagers.wait(slots)
         hits, overflow = step(slots, panels)
         both = torch.cat([hits[0][row0:row0 + rows].to(torch.int64),
                           mesh.psum(overflow)[0].to(dev0).reshape(1)])
-        both, done = _download(both)
+        both, done = stagers.slots[0].download(both)
         if pending is not None:
             finish(*pending)
         pending = (None if j is None else mine[j], batch, both[:rows],

@@ -30,11 +30,10 @@ import torch
 
 from zotpu_torch import keys as K
 from zotpu_torch import semantics as S
-from zotpu_torch.dist.mesh import shard_bits
+from zotpu_torch.dist.mesh import shard_bits, sharded_mesh
 from zotpu_torch.io import container
 from zotpu_torch.kernels.merge_fused import set_op_fused
-from zotpu_torch.workloads.accumulator import to_host
-from zotpu_torch.workloads.kmerize import sharded_mesh
+from zotpu_torch.workloads.staging import to_host
 
 
 def _upload(keys, counts, device):
