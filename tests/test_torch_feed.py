@@ -10,7 +10,9 @@ import pathlib
 import numpy as np
 import pytest
 import torch
+from torch.profiler import ProfilerActivity, profile
 
+from zotpu_torch import metrics
 from zotpu_torch.dist.mesh import make_mesh
 from zotpu_torch.io import fastq, native
 from zotpu_torch.workloads import feed, staging
@@ -130,6 +132,40 @@ def test_pool_and_ordered_feed_give_the_same_batches(inputs, monkeypatch,
     assert all(np.array_equal(b.record_ids, w.record_ids)
                and np.array_equal(b.codes, w.codes)
                for (_, b, _, _), (_, w) in zip(ordered, want))
+
+
+@pytest.mark.parametrize("n_files", [1, 2, WORKERS, WORKERS + 1],
+                         ids=["one_file", "fewer_than_workers",
+                              "as_many_as_workers", "more_than_workers"])
+def test_in_order_pool_keeps_each_file_in_order(inputs, monkeypatch,
+                                                n_files):
+    """With ``in_order`` the pool takes whole files whatever their number:
+    each file's batches come in ``fastq.parse_batches``' order, nothing is
+    cut, and ``parse.threads`` counts min(W, files) threads (1 for one
+    file: the serial path). The first file holds records halo-chunked at
+    ``max_len`` 64, one of them over two batches."""
+    monkeypatch.setenv("ZOTPU_PARSE_WORKERS", str(WORKERS))
+    max_len = 64
+    files = [inputs["halo"], *inputs["files"]][:n_files]
+    paths = [p for p, _ in files]
+    want = [list(fastq.parse_batches(p, BATCH, max_len, halo=K - 1))
+            for p in paths]
+    assert len(want[0]) > 2
+    assert any(a.record_ids[a.n_reads - 1] == b.record_ids[0]
+               for a, b in zip(want[0], want[0][1:]))
+    metrics.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        got = list(feed.batches(paths, BATCH, max_len, K, wire_pack=True,
+                                parallel=True, in_order=True))
+    assert {name: v for name, v in metrics.counters().items()
+            if not name.startswith("load.")} == {
+        "parse.threads": min(WORKERS, n_files)}
+    for f, ((_, n), mine) in enumerate(zip(files, want)):
+        out = [(b, h, r) for g, b, h, r in got if g == f]
+        assert [_key(b, h) for b, h, _ in out] == [
+            _key(w, feed.host_tensors(w, True, False)) for w in mine]
+        assert sum(r for *_, r in out) == n
+    assert len(got) == sum(map(len, want))
 
 
 @pytest.mark.parametrize("n", [0, 1, 7, 1000])

@@ -1,9 +1,10 @@
 """The zotpu_torch scan/pulldown slice on the CPU: ``RecordAggregator`` and
 ``panel_to_device`` against the JAX package's, ``pulldown_paths`` against
-the JAX one, and the CLI (``scan``, ``evidence``, ``probes``, ``query``)
-against ``python -m zotpu`` on JAX-CPU and its ``--host`` golden path, byte
-for byte; plus the not-yet-ported multi-device flags and the no-fallback
-rule for ``--device cuda``."""
+the JAX one (also with samples interleaved on the parse pool, on one slot
+and sharded over four), and the CLI (``scan``, ``evidence``, ``probes``,
+``query``) against ``python -m zotpu`` on JAX-CPU and its ``--host``
+golden path, byte for byte; plus the not-yet-ported multi-device flags and
+the no-fallback rule for ``--device cuda``."""
 
 import json
 
@@ -11,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings, strategies as st
+from torch.profiler import ProfilerActivity, profile
 
 from zotpu import cli as zcli
 from zotpu.io import container
@@ -18,6 +20,8 @@ from zotpu.reference_impl import golden as G
 from zotpu.workloads import pulldown as JPD
 from zotpu_torch import cli as tcli
 from zotpu_torch import keys as K
+from zotpu_torch import metrics
+from zotpu_torch.io import fastq
 from zotpu_torch.workloads import pulldown as TPD
 
 torch.set_num_threads(1)
@@ -186,6 +190,50 @@ def test_pulldown_paths_matches_jax(scan_data, tmp_path):
     assert got == JPD.pulldown_paths(panel_k, paths, K_SCAN, batch_reads=16,
                                      max_len=64)
     assert got[1] == (0, 0, [0, 0, 0])
+
+
+POOL_SAMPLES = [3, 0, 9, 5, 12]
+
+
+@pytest.fixture(scope="module")
+def pool_want(scan_data):
+    """The JAX package's pulldown_paths over POOL_SAMPLES at 16 reads a
+    batch and max_len 64: sample 3's 400 bp record is halo-chunked into
+    rows that run from one batch into the next."""
+    _, _, samples, panel_k = scan_data
+    paths = [samples[i] for i in POOL_SAMPLES]
+    batches = list(fastq.parse_batches(paths[0], 16, 64, halo=K_SCAN - 1))
+    assert any(a.record_ids[a.n_reads - 1] == b.record_ids[0]
+               for a, b in zip(batches, batches[1:]))
+    return paths, JPD.pulldown_paths(panel_k, paths, K_SCAN,
+                                     batch_reads=16, max_len=64)
+
+
+@pytest.mark.parametrize("sharded", [False, True], ids=["one_slot",
+                                                        "four_slots"])
+@pytest.mark.parametrize("workers", [4, 2])
+@pytest.mark.parametrize("n_samples", [2, 5])
+def test_pulldown_on_the_parse_pool_matches_jax(scan_data, pool_want,
+                                                monkeypatch, n_samples,
+                                                workers, sharded):
+    """Two and five samples on a pool of 4 and of 2 parse threads, which
+    interleave the samples' batches: every sample's hits equal the JAX
+    package's, on one slot and hash-sharded over 4 CPU slots."""
+    _, _, _, panel_k = scan_data
+    paths, want = pool_want
+    paths = paths[:n_samples]
+    monkeypatch.setenv("ZOTPU_PARSE_WORKERS", str(workers))
+    metrics.reset_counters()
+    with profile(activities=[ProfilerActivity.CPU]):
+        if sharded:
+            got = TPD.pulldown_paths_sharded(panel_k, paths, K_SCAN, 4,
+                                             batch_reads=16, max_len=64,
+                                             device="cpu")
+        else:
+            got = TPD.pulldown_paths(panel_k, paths, K_SCAN, batch_reads=16,
+                                     max_len=64, device="cpu")
+    assert got == want[:n_samples]
+    assert metrics.counters()["parse.threads"] == min(workers, n_samples)
 
 
 def test_scan_multi_device_not_yet_ported(scan_data, capsys):

@@ -20,7 +20,7 @@ from zotpu_torch.io import fastq, native
 from zotpu_torch.keys import SENTINEL
 from zotpu_torch.kernels import merge_fused, sortdedup
 from zotpu_torch.kernels.pack import pack_canonical_wire
-from zotpu_torch.workloads import accumulator, staging
+from zotpu_torch.workloads import accumulator, feed, staging
 from zotpu_torch.workloads import kmerize as TW
 from zotpu_torch.workloads import pulldown as TP
 
@@ -78,7 +78,8 @@ def _host_batches(paths):
 def test_kmerize_spans_and_counters(data, monkeypatch, n_files):
     """One file against 3 workers is cut into pieces of BATCH records,
     which the workers parse; 3 files against 3 workers parse whole. The
-    waits and the accounting stand on the driving thread either way."""
+    waits and the accounting stand on the driving thread either way, and
+    ``parse.threads`` counts the 3 workers."""
     paths = data[0][:n_files]
     monkeypatch.setenv("ZOTPU_PARSE_WORKERS", "3")
     merges = []
@@ -112,7 +113,8 @@ def test_kmerize_spans_and_counters(data, monkeypatch, n_files):
                    "merge.keys_in": sum(m[0] for m in merges),
                    "merge.keys_out": sum(m[1] for m in merges),
                    "h2d.bytes": sum(t.nbytes for h in hosts for t in h),
-                   "parse.pieces": -(-150 // BATCH) if n_files == 1 else 0}
+                   "parse.pieces": -(-150 // BATCH) if n_files == 1 else 0,
+                   "parse.threads": 3}
     assert len(keys) == stats.unique > 0
 
 
@@ -131,10 +133,12 @@ def test_pulldown_spans_and_counters(data):
     host = sum(t.nbytes for _, _, h in TP._iter_scan_batches(
         paths, BATCH, MAX_LEN, K, True, False) for t in h)
     panel_bytes = TP.panel_to_device(panel, device="cpu").nbytes
-    # no read is longer than MAX_LEN: one row a record, none carried
+    # no read is longer than MAX_LEN: one row a record, none carried; the
+    # parse pool takes the three samples whole
     assert got == {"h2d.bytes": host + panel_bytes,
                    "aggregate.records": sum(150 + 20 * f for f in range(3)),
-                   "aggregate.carried": 0}
+                   "aggregate.carried": 0,
+                   "parse.threads": min(feed.parse_workers(), 3)}
 
 
 def test_aggregate_counts_records_and_carried_records(data):

@@ -49,22 +49,34 @@ def padding_host(rows: int, max_len: int, wire_pack: bool, pin: bool):
         lengths=np.zeros(rows, np.int32), n_reads=0), wire_pack, pin)
 
 
+def parse_workers() -> int:
+    """W, the parse pool's threads: ZOTPU_PARSE_WORKERS, else
+    min(4, cores)."""
+    return int(os.environ.get("ZOTPU_PARSE_WORKERS",
+                              min(4, os.cpu_count() or 1)))
+
+
 def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
-            parallel=False):
+            parallel=False, in_order=False):
     """Every batch of the serial path over ``paths`` exactly once, as
     (file index, batch, host tensors, records it adds); the records summed
     over a call are the input's (a halo-chunked record spans rows, and
     possibly batches).
 
     With ``parallel`` the parse runs on a pool of W threads
-    (ZOTPU_PARSE_WORKERS, else min(4, cores)) and batches INTERLEAVE:
-    with fewer files than W, all plain FASTQ (``fastq.cuttable``), the
-    workers parse pieces of ``batch_reads`` records (``fastq.cut_fastq``,
-    counted as ``parse.pieces``; partial batches go through ``_Rejoin``);
-    else, with more than one file, whole files. Otherwise one prefetch
-    thread parses the files in order."""
-    workers = int(os.environ.get("ZOTPU_PARSE_WORKERS",
-                                 min(4, os.cpu_count() or 1)))
+    (``parse_workers``) and batches INTERLEAVE: with fewer files than W,
+    all plain FASTQ (``fastq.cuttable``), the workers parse pieces of
+    ``batch_reads`` records (``fastq.cut_fastq``, counted as
+    ``parse.pieces``; partial batches go through ``_Rejoin``), and a
+    file's pieces may come out of order; else, with more than one file,
+    whole files, each drained from start to end by one worker, so each
+    file's batches come in file order. ``in_order`` asks for that order
+    (a consumer that keeps state per file across its batches): the cut
+    path never runs. Otherwise one prefetch thread parses the files in
+    order. The threads a call parses on are counted once as
+    ``parse.threads``: W on the cut path, min(W, files) on the file pool,
+    1 on the serial path."""
+    workers = parse_workers()
 
     def counted(f, parsed):
         last = None     # a source's previous record id
@@ -85,7 +97,7 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
         return counted(f, fastq.parse_fastq_piece(data, rec0, batch_reads,
                                                   max_len, halo=k - 1))
 
-    cut = (parallel and len(paths) < workers
+    cut = (parallel and not in_order and len(paths) < workers
            and all(map(fastq.cuttable, paths)))
     if cut:
         sources = (functools.partial(piece, f, *c)
@@ -95,9 +107,12 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
         sources = [functools.partial(whole, f, p)
                    for f, p in enumerate(paths)]
     if cut or (parallel and len(paths) > 1):
+        metrics.count("parse.threads",
+                      workers if cut else min(workers, len(paths)))
         items = prefetch_many(sources, workers=workers,
                               depth=2 * max(workers, 1))
     else:
+        metrics.count("parse.threads", 1)
         items = enumerate(prefetch((item for source in sources
                                     for item in source()), depth=2))
     rejoin = _Rejoin(len(paths), batch_reads, max_len,

@@ -10,9 +10,11 @@ come back to the host, where rows re-aggregate into records
 equal results, so the driving thread holds the GIL that the parse thread
 needs for a few array operations a batch, not a Python loop over records).
 
-One stream of the host feed (workloads/feed.py, in sample order) runs over
-every sample, so parsing the next sample overlaps the device work of this
-one. Each batch goes up through a stager (workloads/staging.py: on CUDA
+One stream of the host feed (workloads/feed.py) runs over every sample:
+with two samples or more the parse pool parses whole samples at once, so
+samples interleave and each sample's batches keep their file order (each
+sample has its own aggregator), and the parse overlaps the device work.
+Each batch goes up through a stager (workloads/staging.py: on CUDA
 from pinned host memory on a copy stream), and its row hits come down into
 pinned memory behind an event; the host aggregates batch i-1 while the
 card works on batch i.
@@ -119,11 +121,14 @@ class RecordAggregator:
 
 
 def _iter_scan_batches(paths, batch_reads, max_len, k, wire_pack, pin):
-    """(sample index, batch, host tensors) over every sample in order: the
-    host feed on one prefetch thread, where the wire pack and pinning
-    run."""
+    """(sample index, batch, host tensors) over every sample: the host
+    feed, where the parse, the wire pack and pinning run, on the parse
+    pool over whole samples where there are two or more (one prefetch
+    thread for one). Samples interleave; each sample's batches come in
+    file order, as its ``RecordAggregator`` needs."""
     return ((idx, batch, host) for idx, batch, host, _ in feed.batches(
-        paths, batch_reads, max_len, k, wire_pack=wire_pack, pin=pin))
+        paths, batch_reads, max_len, k, wire_pack=wire_pack, pin=pin,
+        parallel=True, in_order=True))
 
 
 def pulldown_paths(panel_keys: np.ndarray, sample_paths: list[str], k: int,
