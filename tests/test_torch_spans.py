@@ -16,13 +16,14 @@ from torch.profiler import ProfilerActivity, profile, record_function
 
 from zotpu_torch import cli as tcli
 from zotpu_torch import metrics
-from zotpu_torch.io import fastq, native
+from zotpu_torch.io import container, fastq, native
 from zotpu_torch.keys import SENTINEL
 from zotpu_torch.kernels import merge_fused, sortdedup
 from zotpu_torch.kernels.pack import pack_canonical_wire
 from zotpu_torch.workloads import accumulator, feed, staging
 from zotpu_torch.workloads import kmerize as TW
 from zotpu_torch.workloads import pulldown as TP
+from zotpu_torch.workloads import setops as TS
 
 torch.set_num_threads(1)
 
@@ -236,6 +237,49 @@ def test_nothing_is_recorded_without_a_profiler(data, monkeypatch):
     assert opened == []
     assert {name: v for name, v in metrics.counters().items()
             if not name.startswith("load.")} == {}
+
+
+@pytest.mark.parametrize("op", ["union", "intersect", "diff", "jaccard"])
+def test_setop_paths_spans_and_counters(tmp_path, monkeypatch, op):
+    """One call of ``set_op_paths`` (or ``jaccard_paths``) opens each of
+    its four spans once and counts both sides' keys, n_out, and the bytes
+    it copies up: n and the keys of each side, and the counts where the
+    op takes them. Without a profiler it records nothing."""
+    rng = np.random.default_rng(22)
+    sides = []
+    for name, n in (("a", 300), ("b", 200)):
+        keys = np.unique(rng.integers(0, 1000, n)).astype(np.uint64)
+        path = str(tmp_path / f"{name}.zkf")
+        container.write(path, container.KmerSet(
+            k=K, keys=keys, counts=rng.integers(1, 9, len(keys)).astype(
+                np.uint32)))
+        sides.append((path, keys))
+    (pa, a), (pb, b) = sides
+
+    def call():
+        if op == "jaccard":
+            return TS.jaccard_paths(pa, pb, device="cpu")
+        return TS.set_op_paths(pa, pb, op, device="cpu")
+
+    with monkeypatch.context() as m:
+        opened = []
+        m.setattr(metrics, "_Range", opened.append)
+        metrics.reset_counters()
+        want = call()
+        assert opened == [] and metrics.counters() == {}
+    got, spans, counters = _profiled(call)
+    assert got == want if op == "jaccard" else all(
+        np.array_equal(x, y) for x, y in zip(got, want))
+    assert spans == {"set_read": 1, "upload": 1, "step": 1,
+                     "download_wait": 1}
+    n_out = len({"union": np.union1d, "diff": np.setdiff1d}.get(
+        op, np.intersect1d)(a, b))
+    per_key = 8 if op == "jaccard" else 16
+    keys_in = len(a) + len(b)
+    assert counters == {"h2d.bytes": per_key * keys_in + 2 * 8,
+                        f"setop.{op}.keys_in": keys_in,
+                        f"setop.{op}.keys_out": n_out,
+                        "merge.keys_in": keys_in, "merge.keys_out": n_out}
 
 
 def test_load_seconds_after_the_first_native_load(monkeypatch):

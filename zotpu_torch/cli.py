@@ -284,11 +284,12 @@ def cmd_merge(args):
 
 def _binary_setop(args, op):
     """union / intersect / diff of two sets (BASELINE config 3; zotpu/cli.py
-    _binary_setop): one K3 launch on one device, one per slot with
-    --shards N, and with --stream (always in a multi-controller run) the
-    slots' rows are read straight from the container files in O(chunk)
-    host memory; across processes the cardinalities are summed, the
-    process sets gathered, and process 0 writes."""
+    _binary_setop): one K3 launch on one device (``set_op_paths``), one
+    per slot with --shards N, and with --stream (always in a
+    multi-controller run) the slots' rows are read straight from the
+    container files in O(chunk) host memory; across processes the
+    cardinalities are summed, the process sets gathered, and process 0
+    writes."""
     from zotpu_torch.workloads import setops as WS
     meta = {"tool": f"zotpu_torch {op}"}
     if args.stream or _multi(args):
@@ -310,23 +311,25 @@ def _binary_setop(args, op):
             print(json.dumps({"command": op, "unique": len(keys),
                               "cards": cards}))
         return 0
-    a, ca = _load_padded(args.a)
-    b, cb = _load_padded(args.b)
-    if a.k != b.k:
-        raise ValueError(f"K mismatch ({a.k} vs {b.k})")
-    if args.host:
-        gold = {"union": G.union, "intersect": G.intersect,
-                "diff": G.difference}[op]
-        keys, counts = gold((a.keys, ca), (b.keys, cb))
-    elif args.shards > 1:
-        keys, counts, _ = WS.set_op_sharded(
-            (a.keys, ca), (b.keys, cb), op, a.k, args.shards,
-            device=_device(args.device))
+    if not args.host and args.shards <= 1:
+        k, keys, counts = WS.set_op_paths(args.a, args.b, op,
+                                          device=_device(args.device))
     else:
-        keys, counts = WS.set_op((a.keys, ca), (b.keys, cb), op=op,
-                                 device=_device(args.device))
+        a, ca = _load_padded(args.a)
+        b, cb = _load_padded(args.b)
+        if a.k != b.k:
+            raise ValueError(f"K mismatch ({a.k} vs {b.k})")
+        k = a.k
+        if args.host:
+            gold = {"union": G.union, "intersect": G.intersect,
+                    "diff": G.difference}[op]
+            keys, counts = gold((a.keys, ca), (b.keys, cb))
+        else:
+            keys, counts, _ = WS.set_op_sharded(
+                (a.keys, ca), (b.keys, cb), op, a.k, args.shards,
+                device=_device(args.device))
     container.write(args.output, container.KmerSet(
-        k=a.k, keys=keys, counts=counts, meta=meta),
+        k=k, keys=keys, counts=counts, meta=meta),
         codec=args.codec or "raw")
     print(json.dumps({"command": op, "unique": len(keys)}))
     return 0
@@ -349,14 +352,21 @@ def _pair_jaccard(a, b, host, shards=1, cache=None, device=None):
 def cmd_jaccard(args):
     """Pairwise similarity; with >2 inputs prints the full matrix."""
     device = None if args.host else _device(args.device)
-    sets = [_load_padded(p)[0] for p in args.inputs]
-    if len(sets) == 2:
-        na, nb, ni, nu = _pair_jaccard(sets[0], sets[1], args.host,
-                                       args.shards, device=device)
+    if len(args.inputs) == 2:
+        if args.host or args.shards > 1:
+            a, b = (_load_padded(p)[0] for p in args.inputs)
+            na, nb, ni, nu = _pair_jaccard(a, b, args.host, args.shards,
+                                           device=device)
+        else:
+            from zotpu_torch.workloads import setops as WS
+            r = WS.jaccard_paths(*args.inputs, device=device)
+            na, nb, ni, nu = (int(r[n]) for n in ("a", "b", "intersect",
+                                                  "union"))
         print(json.dumps({"command": "jaccard", "a": na, "b": nb,
                           "intersect": ni, "union": nu,
                           "jaccard": ni / nu if nu else 0.0}))
         return 0
+    sets = [_load_padded(p)[0] for p in args.inputs]
     # one partition cache for the whole matrix: each set is partitioned and
     # uploaded ONCE, not once per pair
     cache = {}

@@ -12,6 +12,15 @@ and ``_pow2_cap`` (a slot's row is as long as its slice). The sort-based
 ``kernels/setops.cardinalities`` is one K3 ``intersect`` launch here, and
 only its ``n_out`` crosses to the host.
 
+``set_op_paths`` and ``jaccard_paths`` are the one-device bodies of the
+CLI's ``union``/``intersect``/``diff`` and two-set ``jaccard``: both
+containers read whole, then ``set_op`` or ``jaccard``. While a profiler
+runs they record the spans ``set_read``, ``upload``, ``step`` and
+``download_wait``, the counters ``setop.<op>.keys_in`` (both sides' keys)
+and ``setop.<op>.keys_out`` (n_out; ``<op>`` is ``jaccard`` for the
+similarity), ``h2d.bytes`` (``_upload``) and ``alloc.device`` /
+``alloc.host`` (metrics.py).
+
 The sharded forms run on a mesh of slots (dist/mesh.py): both inputs are
 sorted, so key-prefix sharding is a contiguous slice per slot; slot d runs
 K3 on its slice of both sets on its own device, the outputs concatenate
@@ -29,6 +38,7 @@ import numpy as np
 import torch
 
 from zotpu_torch import keys as K
+from zotpu_torch import metrics
 from zotpu_torch import semantics as S
 from zotpu_torch.dist.mesh import shard_bits, sharded_mesh
 from zotpu_torch.io import container
@@ -38,9 +48,15 @@ from zotpu_torch.workloads.staging import to_host
 
 def _upload(keys, counts, device):
     """(u64 keys, u32 counts or None) -> a dense device entry (int64 keys,
-    int64 counts, n as a 0-d int64 tensor)."""
+    int64 counts, n as a 0-d int64 tensor). Counts the bytes copied up, n
+    and the keys (and the counts where given: else they are made on the
+    device), as ``h2d.bytes``."""
     k, c = K.from_numpy_set(keys, counts, device)
-    return k, c, torch.tensor(k.shape[0], dtype=torch.int64, device=device)
+    n = torch.tensor(k.shape[0], dtype=torch.int64, device=device)
+    if metrics.tracing():
+        metrics.count("h2d.bytes", k.nbytes + n.nbytes
+                      + (0 if counts is None else c.nbytes))
+    return k, c, n
 
 
 def _download(parts):
@@ -53,14 +69,43 @@ def _download(parts):
             np.concatenate(host[D:]).astype(S.COUNT_DTYPE))
 
 
+def _count_keys(op: str, n_in: int, n_out: int) -> None:
+    if metrics.tracing():
+        metrics.count(f"setop.{op}.keys_in", n_in)
+        metrics.count(f"setop.{op}.keys_out", n_out)
+
+
 def set_op(a: tuple[np.ndarray, np.ndarray], b: tuple[np.ndarray, np.ndarray],
            op: str, device="cuda") -> tuple[np.ndarray, np.ndarray]:
     """Device set op between two sorted unique (keys u64, counts u32) pairs:
-    one K3 launch on the whole sets."""
-    ka, ca, na = _upload(*a, device)
-    kb, cb, nb = _upload(*b, device)
-    keys, counts, n = set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb)
-    return _download([(keys, counts, int(n))])
+    one K3 launch on the whole sets. A side's counts may be None (counts of
+    one, made on the device)."""
+    with metrics.span("upload"):
+        ka, ca, na = _upload(*a, device)
+        kb, cb, nb = _upload(*b, device)
+    with metrics.span("step"):
+        keys, counts, n = set_op_fused(ka, ca, kb, cb, op, n_a=na, n_b=nb)
+    with metrics.span("download_wait"):
+        out = _download([(keys, counts, int(n))])
+    _count_keys(op, len(a[0]) + len(b[0]), len(out[0]))
+    return out
+
+
+def set_op_paths(path_a: str, path_b: str, op: str, device="cuda"
+                 ) -> tuple[int, np.ndarray, np.ndarray]:
+    """``set_op`` between two container files on one device, as the CLI's
+    union / intersect / diff run it: (k, keys u64, counts u32); a set
+    without counts counts one a key. Raises ValueError where the two k
+    differ."""
+    allocs = metrics.alloc_mark(device)
+    with metrics.span("set_read"):
+        a, b = container.read(path_a), container.read(path_b)
+    if a.k != b.k:
+        raise ValueError(f"K mismatch ({a.k} vs {b.k})")
+    keys, counts = set_op((a.keys, a.counts), (b.keys, b.counts), op,
+                          device=device)
+    metrics.count_allocs(allocs)
+    return a.k, keys, counts
 
 
 def merge_tree_device(runs: list[tuple[np.ndarray, np.ndarray]],
@@ -105,10 +150,27 @@ def _cards(na: int, nb: int, n_out: int, op: str) -> dict:
 def jaccard(a_keys: np.ndarray, b_keys: np.ndarray, device="cuda") -> dict:
     """Similarity statistics from device cardinalities: one K3 ``intersect``
     with counts of one; only n_out crosses to the host."""
-    ka, ca, na = _upload(a_keys, None, device)
-    kb, cb, nb = _upload(b_keys, None, device)
-    n = set_op_fused(ka, ca, kb, cb, "intersect", n_a=na, n_b=nb)[2]
-    return _cards(len(a_keys), len(b_keys), int(n), "intersect")
+    with metrics.span("upload"):
+        ka, ca, na = _upload(a_keys, None, device)
+        kb, cb, nb = _upload(b_keys, None, device)
+    with metrics.span("step"):
+        n = set_op_fused(ka, ca, kb, cb, "intersect", n_a=na, n_b=nb)[2]
+    with metrics.span("download_wait"):
+        n = int(n)
+    _count_keys("jaccard", len(a_keys) + len(b_keys), n)
+    return _cards(len(a_keys), len(b_keys), n, "intersect")
+
+
+def jaccard_paths(path_a: str, path_b: str, device="cuda") -> dict:
+    """``jaccard`` between two container files on one device, as the CLI's
+    two-set ``jaccard`` runs it: {a, b, intersect, union, jaccard}. Like
+    the CLI, it does not compare the two k."""
+    allocs = metrics.alloc_mark(device)
+    with metrics.span("set_read"):
+        a, b = container.read(path_a), container.read(path_b)
+    cards = jaccard(a.keys, b.keys, device=device)
+    metrics.count_allocs(allocs)
+    return cards
 
 
 # ---------------------------------------------------------------------------
