@@ -182,6 +182,59 @@ def test_container_casket_equal(tmp_path):
         str(tmp_path / "jax.zkc"))
 
 
+@pytest.mark.parametrize("where", ["file", "casket"])
+@pytest.mark.parametrize("counts", [False, True], ids=["kset", "kfset"])
+@pytest.mark.parametrize("n", [0, 3000])
+def test_container_raw_read_returns_owned_arrays(tmp_path, n, counts, where):
+    """A raw set, from a plain file or a casket member, is read into
+    writable arrays of the file's dtypes that hold their own memory (no view
+    of a bytes object), equal to what was written and to the JAX package's
+    read."""
+    zc, tc = _pair("io.container")
+    rng = np.random.default_rng(n + counts)
+    ks = _kmer_set(tc, rng, n, counts)
+    path = str(tmp_path / "s.zkf")
+    if where == "file":
+        tc.write(path, ks)
+    else:
+        path = str(tmp_path / "c.zkc")
+        tc.casket_write(path, [("x", _kmer_set(tc, rng, 50, True)),
+                               ("s", ks)])
+        path += "#s"
+    got, want = tc.read(path), zc.read(path)
+    assert got.k == want.k and got.meta == want.meta == ks.meta
+    pairs = [(got.keys, want.keys, ks.keys, "<u8")]
+    if counts:
+        pairs.append((got.counts, want.counts, ks.counts, "<u4"))
+    else:
+        assert got.counts is None and want.counts is None
+    for arr, jax_arr, written, dtype in pairs:
+        assert arr.dtype == np.dtype(dtype)
+        assert arr.flags.writeable
+        assert arr.flags.owndata or not isinstance(arr.base, bytes)
+        _same(arr, written)
+        _same(arr, jax_arr)
+
+
+@pytest.mark.parametrize("cut", ["keys", "counts"])
+def test_container_raw_read_of_a_cut_file_raises(tmp_path, cut):
+    """A raw file cut inside its keys or its counts blob raises
+    ValueError from either package's read."""
+    zc, tc = _pair("io.container")
+    ks = _kmer_set(tc, np.random.default_rng(5), 3000, True)
+    path = tmp_path / "s.zkf"
+    tc.write(str(path), ks)
+    data = path.read_bytes()
+    counts_at = len(data) - 4 * ks.n
+    end = (counts_at - 8 * (ks.n // 2) - 3 if cut == "keys"
+           else len(data) - 4 * (ks.n // 2) - 1)
+    path.write_bytes(data[:end])
+    with pytest.raises(ValueError, match="truncated container"):
+        tc.read(str(path))
+    with pytest.raises(ValueError):
+        zc.read(str(path))
+
+
 # ------------------------------------------------------ fastq, native, wire
 
 def _fastq_text(rng, n=300, fmt="fastq"):

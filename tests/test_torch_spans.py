@@ -277,9 +277,34 @@ def test_setop_paths_spans_and_counters(tmp_path, monkeypatch, op):
     per_key = 8 if op == "jaccard" else 16
     keys_in = len(a) + len(b)
     assert counters == {"h2d.bytes": per_key * keys_in + 2 * 8,
+                        "container.read_direct_bytes": 12 * keys_in,
                         f"setop.{op}.keys_in": keys_in,
                         f"setop.{op}.keys_out": n_out,
                         "merge.keys_in": keys_in, "merge.keys_out": n_out}
+
+
+@pytest.mark.parametrize("counts", [False, True], ids=["kset", "kfset"])
+def test_container_read_counts_the_bytes_read_into_its_arrays(tmp_path,
+                                                              counts):
+    """A raw set's ``read`` counts 8 bytes a key and 4 a count as
+    ``container.read_direct_bytes``; a zlib or delta set counts none, and
+    nothing is counted without a profiler."""
+    rng = np.random.default_rng(23)
+    keys = np.unique(rng.integers(0, 1 << 40, 500)).astype(np.uint64)
+    c = rng.integers(1, 9, len(keys)).astype(np.uint32) if counts else None
+    got = {}
+    for codec in ("raw", "zlib", "delta"):
+        path = str(tmp_path / f"{codec}.zkf")
+        container.write(path, container.KmerSet(k=K, keys=keys, counts=c),
+                        codec=codec)
+        metrics.reset_counters()
+        container.read(path)
+        assert metrics.counters() == {}
+        ks, _, counters = _profiled(lambda: container.read(path))
+        assert np.array_equal(ks.keys, keys)
+        got[codec] = counters.get("container.read_direct_bytes", 0)
+    assert got == {"raw": (12 if counts else 8) * len(keys), "zlib": 0,
+                   "delta": 0}
 
 
 def test_load_seconds_after_the_first_native_load(monkeypatch):

@@ -54,6 +54,7 @@ from dataclasses import dataclass, field
 
 import numpy as np
 
+from zotpu_torch import metrics
 from zotpu_torch import semantics as S
 
 MAGIC = b"ZKF1"
@@ -135,22 +136,36 @@ def _read_header_stream(f, label: str) -> dict:
     return json.loads(f.read(int(hlen)).decode("utf-8"))
 
 
+def _read_into(f, n: int, dtype: str, label: str) -> np.ndarray:
+    """A raw blob of ``n`` entries read from ``f`` straight into a fresh
+    array of its own dtype: one copy, from the file to the array."""
+    arr = np.empty(n, dtype)
+    buf = memoryview(arr).cast("B")
+    got = 0
+    while got < len(buf):
+        step = f.readinto(buf[got:])
+        if not step:
+            raise ValueError(f"{label}: truncated container (expected {n} "
+                             f"entries, got {got // arr.itemsize})")
+        got += step
+    return arr
+
+
 def read_stream(f, label: str = "<stream>") -> KmerSet:
     """Read one complete ZKF stream from an open binary file positioned at
-    its magic (a standalone file or a casket member region)."""
+    its magic (a standalone file or a casket member region).
+
+    A zlib or delta stream is read, decoded, then copied; a raw stream is
+    read straight into the arrays returned, which the counter
+    ``container.read_direct_bytes`` counts."""
     hdr = _read_header_stream(f, label)
     n = int(hdr["n"])
     codec = hdr.get("codec", "raw")
+    meta = hdr.get("meta", {})
 
     def zblob(dtype):
         (zlen,) = np.frombuffer(f.read(8), dtype="<u8")
         return np.frombuffer(zlib.decompress(f.read(int(zlen))), dtype=dtype)
-
-    def blob(dtype):
-        if codec == "zlib":
-            return zblob(dtype)
-        itemsize = np.dtype(dtype).itemsize
-        return np.frombuffer(f.read(n * itemsize), dtype=dtype)
 
     if codec == "delta":
         from zotpu_torch.io import delta as D
@@ -165,15 +180,22 @@ def read_stream(f, label: str = "<stream>") -> KmerSet:
             raise ValueError(f"{label}: truncated container "
                              f"(expected {n} entries, got {len(d32)})")
         keys, counts = D.decode(d32, c16, exc_pos, exc_key, exc_cnt, n)
+    elif codec == "zlib":
+        keys = zblob("<u8")
+        counts = zblob("<u4") if hdr["has_counts"] else None
     else:
-        keys = blob("<u8")
-        counts = blob("<u4") if hdr["has_counts"] else None
+        keys = _read_into(f, n, "<u8", label)
+        counts = (_read_into(f, n, "<u4", label) if hdr["has_counts"]
+                  else None)
+        metrics.count("container.read_direct_bytes",
+                      keys.nbytes + (0 if counts is None else counts.nbytes))
+        return KmerSet(k=int(hdr["k"]), keys=keys, counts=counts, meta=meta)
     if len(keys) != n or (counts is not None and len(counts) != n):
         raise ValueError(f"{label}: truncated container "
                          f"(expected {n} entries, got {len(keys)})")
     return KmerSet(k=int(hdr["k"]), keys=keys.copy(),
                    counts=None if counts is None else counts.copy(),
-                   meta=hdr.get("meta", {}))
+                   meta=meta)
 
 
 # ---------------------------------------------------------------------------
