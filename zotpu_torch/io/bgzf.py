@@ -11,20 +11,57 @@ inflated in parallel and re-emitted in order.
 
 ``BgzfPipe`` is a drop-in for the ``.read()`` chunk facade fastq._open_chunks
 hands the batched parsers: it walks the block headers sequentially (one
-bounded buffer), groups ~``group_bytes`` of compressed blocks, inflates the
+bounded buffer), groups ~``GROUP_BYTES`` of compressed blocks, inflates the
 groups in a small thread pool (zlib releases the GIL), and yields the
 inflated chunks IN ORDER with a bounded in-flight window -- flat RSS, same
 bytes as serial gzip (tests assert equality).
+
+What an inflate did is counted in an ``InflateTotals`` that the caller
+hands the pipe (``BgzfPipe`` here, ``fastq._ChunkPipe`` for plain gzip):
+plain numbers, added on the threads that inflate. Those threads are not
+the one a profiler traces, so the thread that drives the job records the
+totals (``workloads/feed.batches``: the counters ``inflate.*``).
 """
 
 from __future__ import annotations
 
 import os
 import struct
+import threading
+import time
 import zlib
 
 _GZ_MAGIC = b"\x1f\x8b"
 _FEXTRA = 0x04
+#: the compressed bytes of whole blocks that BgzfPipe inflates as one task
+GROUP_BYTES = 8 << 20
+
+
+class InflateTotals:
+    """What the inflate of gzip inputs did, summed over the pipes handed
+    it: ``bytes_in``, the compressed bytes of the gzip members inflated;
+    ``bytes_out``, the bytes they gave; ``s``, the wall seconds of each
+    inflate task, summed over tasks; ``threads``, the threads that ran at
+    least one task. The pipes add on the threads that inflate, under a
+    lock."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._ran: set[threading.Thread] = set()  # held: none counts twice
+        self.bytes_in = self.bytes_out = 0
+        self.s = 0.0
+
+    @property
+    def threads(self) -> int:
+        return len(self._ran)
+
+    def add(self, bytes_in: int, bytes_out: int, s: float) -> None:
+        """One task's totals, added on the thread that ran it."""
+        with self._lock:
+            self._ran.add(threading.current_thread())
+            self.bytes_in += bytes_in
+            self.bytes_out += bytes_out
+            self.s += s
 
 
 def _bc_bsize(extra: bytes) -> int | None:
@@ -123,14 +160,27 @@ class BgzfPipe:
     Drop-in for fastq's chunk sources: each ``.read()`` returns the next
     inflated group (callers treat the size argument as advisory, exactly as
     with _ChunkPipe). Plain-gzip files must NOT come here -- callers gate on
-    ``is_bgzf``."""
+    ``is_bgzf``.
+
+    With ``totals`` (an ``InflateTotals``) the pipe counts each task, timed
+    on the pool thread that runs ``_inflate_members``: its group's bytes in
+    and out, its seconds and its thread. A pool starts a thread only as
+    tasks come, so a file of one group counts one. The caller's driving
+    thread records them; nothing is counted here."""
 
     def __init__(self, path: str, workers: int | None = None,
-                 group_bytes: int = 8 << 20):
+                 totals: InflateTotals | None = None):
         workers = workers or default_workers()
-        self._gen = _ordered_parallel(_iter_groups(path, group_bytes),
-                                      _inflate_members, workers,
-                                      window=workers + 2)
+        inflate = _inflate_members
+        if totals is not None:
+            def inflate(data: bytes) -> bytes:
+                t = time.perf_counter()
+                out = _inflate_members(data)
+                totals.add(len(data), len(out), time.perf_counter() - t)
+                return out
+        self._gen = _ordered_parallel(
+            _iter_groups(path, GROUP_BYTES), inflate, workers,
+            window=workers + 2)
 
     def read(self, n: int = -1) -> bytes:
         return next(self._gen, b"")

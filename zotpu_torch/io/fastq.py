@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import gzip
 import io
+import time
 from dataclasses import dataclass
 from typing import Iterator
 
@@ -117,10 +118,21 @@ def _chunk_bytes() -> int:
     return int(os.environ.get("ZOTPU_CHUNK_BYTES", 64 << 20))
 
 
-def _iter_file_chunks(path: str):
+def _iter_file_chunks(path: str, totals=None):
+    """The file's bytes, gzip-transparent, _chunk_bytes() at a time. With
+    ``totals`` (io/bgzf.InflateTotals; a .gz file) each read is timed and
+    counted as an inflate task: its seconds, the bytes it gave, and the
+    compressed bytes read from the file meanwhile."""
     with open_file(path, "rb") as f:
+        raw = getattr(f, "fileobj", f)
+        pos = raw.tell() if totals is not None else 0
         while True:
+            t = time.perf_counter()
             data = f.read(_chunk_bytes())
+            if totals is not None:
+                end = raw.tell()
+                totals.add(end - pos, len(data), time.perf_counter() - t)
+                pos = end
             if not data:
                 return
             yield data
@@ -135,11 +147,15 @@ class _ChunkPipe:
     section 7 "gzip inflation ... overlapped"; a single gzip STREAM is
     inherently serial to inflate, so within one file this pipelining is the
     whole opportunity -- cross-file parallelism is io/prefetch.prefetch_many).
-    RSS stays flat: at most ``depth`` chunks are buffered."""
+    RSS stays flat: at most ``depth`` chunks are buffered.
 
-    def __init__(self, path: str):
+    With ``totals`` (io/bgzf.InflateTotals; a .gz file only) each chunk
+    read, timed in the prefetch thread, counts as an inflate task of that
+    one thread. The caller's driving thread records them."""
+
+    def __init__(self, path: str, totals=None):
         from zotpu_torch.io.prefetch import prefetch
-        self._gen = prefetch(_iter_file_chunks(path), depth=2)
+        self._gen = prefetch(_iter_file_chunks(path, totals), depth=2)
 
     def read(self, n: int = -1) -> bytes:  # n ignored: chunks are pre-sized
         return next(self._gen, b"")
@@ -154,21 +170,28 @@ class _ChunkPipe:
         self.close()
 
 
-def _open_chunks(path: str):
+def _open_chunks(path: str, totals=None):
     """Chunk source for the batched parsers; .gz pipelines inflate into its
     own thread (ZOTPU_PIPELINE_INFLATE=1 forces it for any file, =0 off).
     BGZF (bgzip) files -- independently-inflatable gzip blocks carrying the
     BC extra subfield -- inflate block-groups in a small thread POOL
     instead, so one large file is no longer capped at one core's inflate
     rate (ZOTPU_BGZF_WORKERS sizes the pool, =1
-    reduces to the serial pipeline)."""
+    reduces to the serial pipeline).
+
+    ``totals`` (io/bgzf.InflateTotals) goes to the pipe of a .gz file,
+    which counts in it on its own threads what it inflated: the bytes in
+    and out, the seconds of its tasks and its threads. The thread that
+    drives the job records them (workloads/feed.batches); a file that is
+    not .gz counts nothing."""
     import os
     mode = os.environ.get("ZOTPU_PIPELINE_INFLATE", "auto")
     if mode == "1" or (mode == "auto" and path.endswith(".gz")):
         from zotpu_torch.io import bgzf
+        totals = totals if path.endswith(".gz") else None
         if path != "-" and bgzf.is_bgzf(path) and bgzf.default_workers() > 1:
-            return bgzf.BgzfPipe(path)
-        return _ChunkPipe(path)
+            return bgzf.BgzfPipe(path, totals=totals)
+        return _ChunkPipe(path, totals)
     return open_file(path, "rb")
 
 
@@ -329,7 +352,7 @@ def _fastq_records(em, buf, rec0: int, max_reads: int, max_len: int,
 
 
 def _fastq_batches_chunked(path: str, max_reads: int, max_len: int,
-                           halo: int) -> Iterator[CodeBatch]:
+                           halo: int, totals=None) -> Iterator[CodeBatch]:
     """Chunked FASTQ parse: bounded memory, record-boundary carry.
 
     Reads _chunk_bytes() at a time (gzip-transparent; decompression happens
@@ -339,7 +362,7 @@ def _fastq_batches_chunked(path: str, max_reads: int, max_len: int,
     """
     em = _BatchEmitter(max_reads, max_len)
     rec0 = 0
-    with _open_chunks(path) as f:
+    with _open_chunks(path, totals) as f:
         carry = b""
         while True:
             data = f.read(_chunk_bytes())
@@ -449,7 +472,7 @@ def _emit_record_rows(em, rec, rec_id, max_len, halo):
 
 
 def _fasta_batches_chunked(path: str, max_reads: int, max_len: int,
-                           halo: int) -> Iterator[CodeBatch]:
+                           halo: int, totals=None) -> Iterator[CodeBatch]:
     """Chunked FASTA parse: bounded memory even for genome-sized records.
 
     Sequence bases accumulate per record and full halo rows are emitted as
@@ -486,7 +509,7 @@ def _fasta_batches_chunked(path: str, max_reads: int, max_len: int,
         cur = np.empty(0, np.uint8)
         rows_emitted = 0
 
-    with _open_chunks(path) as f:
+    with _open_chunks(path, totals) as f:
         carry = b""
         while True:
             data = f.read(_chunk_bytes())
@@ -527,7 +550,8 @@ def _fasta_batches_chunked(path: str, max_reads: int, max_len: int,
 
 
 def parse_batches(path: str, max_reads: int, max_len: int,
-                  fmt: str | None = None, halo: int = 0) -> Iterator[CodeBatch]:
+                  fmt: str | None = None, halo: int = 0,
+                  totals=None) -> Iterator[CodeBatch]:
     """Stream a FASTA/FASTQ file as fixed-shape CodeBatch-es, BOUNDED memory.
 
     Sequences longer than ``max_len`` are split into ``max_len`` rows that
@@ -536,13 +560,15 @@ def parse_batches(path: str, max_reads: int, max_len: int,
     _chunk_bytes() pieces with record-boundary carry (gzip-transparent), so a
     run larger than host RAM streams with flat RSS; decompression and encode
     happen here -- inside the prefetch thread when driven by workloads.
+    A .gz file's inflate is counted in ``totals`` (``_open_chunks``).
     """
     if fmt is None:
         fmt = sniff_format(path)
     if fmt == "fastq":
-        yield from _fastq_batches_chunked(path, max_reads, max_len, halo)
+        yield from _fastq_batches_chunked(path, max_reads, max_len, halo,
+                                          totals)
         return
-    yield from _fasta_batches_chunked(path, max_reads, max_len, halo)
+    yield from _fasta_batches_chunked(path, max_reads, max_len, halo, totals)
 
 
 def _rows_to_batches(rows, max_reads, max_len, new_bases=None, rowids=None):

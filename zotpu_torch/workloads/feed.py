@@ -14,7 +14,7 @@ import torch
 
 from zotpu_torch import metrics
 from zotpu_torch import semantics as S
-from zotpu_torch.io import fastq, wire
+from zotpu_torch.io import bgzf, fastq, wire
 from zotpu_torch.io.prefetch import prefetch, prefetch_many
 
 
@@ -75,8 +75,16 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
     path never runs. Otherwise one prefetch thread parses the files in
     order. The threads a call parses on are counted once as
     ``parse.threads``: W on the cut path, min(W, files) on the file pool,
-    1 on the serial path."""
+    1 on the serial path.
+
+    While a profiler runs, what the .gz files' pipes inflated (on threads
+    of their own, where a counter would be dropped) is summed in one
+    ``bgzf.InflateTotals`` and recorded here, on the driving thread, once
+    the last batch has passed: ``inflate.bytes_in``, ``inflate.bytes_out``,
+    ``inflate.s`` and ``inflate.threads``. A call over plain files records
+    none of them."""
     workers = parse_workers()
+    inflated = bgzf.InflateTotals() if metrics.tracing() else None
 
     def counted(f, parsed):
         last = None     # a source's previous record id
@@ -91,7 +99,7 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
 
     def whole(f, path):
         return counted(f, fastq.parse_batches(path, batch_reads, max_len,
-                                              halo=k - 1))
+                                              halo=k - 1, totals=inflated))
 
     def piece(f, data, rec0):
         return counted(f, fastq.parse_fastq_piece(data, rec0, batch_reads,
@@ -127,6 +135,9 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
         else:
             yield f, batch, host, n_rec
     yield from rejoin.flush()
+    if inflated is not None and inflated.threads:
+        for name in ("bytes_in", "bytes_out", "s", "threads"):
+            metrics.count("inflate." + name, getattr(inflated, name))
 
 
 class _Rejoin:
