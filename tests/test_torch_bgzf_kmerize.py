@@ -1,13 +1,16 @@
 """kmerize over gzip-compressed lanes on the CPU: BGZF (bgzip) and plain
 gzip ``.fastq.gz`` files through ``workloads.kmerize.kmerize_paths`` and
 the CLI, against the same reads as plain FASTQ, golden and ``python -m
-zotpu kmerize``; inflate errors reaching the caller; and the counters
-``inflate.*`` that ``workloads/feed.batches`` records for a traced call."""
+zotpu kmerize``; inflate errors reaching the caller; each BGZF member
+inflated from its own slice of a group; and the counters ``inflate.*``
+that ``workloads/feed.batches`` records for a traced call."""
 
 import gzip
 import os
 import struct
 import threading
+import tracemalloc
+import types
 import zlib
 
 import numpy as np
@@ -16,6 +19,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from zotpu import cli as zcli
+from zotpu.io import bgzf as zbgzf
 from zotpu_torch import cli as tcli
 from zotpu_torch import metrics
 from zotpu_torch.io import bgzf, container
@@ -175,6 +179,140 @@ def test_an_inflate_error_reaches_the_caller(lanes, env, tmp_path, fault,
     _new_threads_end(before)
 
 
+def _fastq_bytes(n_bytes, seed=25):
+    """FASTQ records of 150 random bases and binned qualities, about
+    ``n_bytes`` of them."""
+    rng = np.random.default_rng(seed)
+    recs, size, i = [], 0, 0
+    while size < n_bytes:
+        seq = rng.choice(np.frombuffer(b"ACGT", np.uint8), 150).tobytes()
+        qual = rng.choice(np.frombuffer(b"F:,#", np.uint8), 150,
+                          p=[.8, .12, .06, .02]).tobytes()
+        recs.append(b"@r%d\n%s\n+\n%s\n" % (i, seq, qual))
+        size += len(recs[-1])
+        i += 1
+    return b"".join(recs)
+
+
+def _blocks(path):
+    """The BGZF file's blocks, each its own bytes."""
+    return list(bgzf._iter_groups(str(path), 1))
+
+
+WRITERS = {
+    "level1": lambda path, data: bgzf.write_bgzf(path, data, level=1),
+    "level6": lambda path, data: bgzf.write_bgzf(path, data, level=6),
+    "htslib_0xff00": lambda path, data: _write_bgzf(path, data, 0xFF00),
+}
+# the members of a group: data blocks first, then the EOF block or not
+GROUPS = {"one": (1, False), "two": (2, False), "many": (9, False),
+          "eof_only": (0, True), "many_then_eof": (9, True)}
+
+
+@pytest.mark.parametrize("group", GROUPS)
+@pytest.mark.parametrize("writer", WRITERS)
+def test_each_member_inflates_as_gzip_and_jax(tmp_path, writer, group):
+    """A group of whole members inflates to the bytes that the standard
+    library's gzip and the JAX package's ``_inflate_members`` give, which
+    are the data the blocks hold."""
+    n, eof = GROUPS[group]
+    data = _fastq_bytes(9 * 0xFF00)
+    WRITERS[writer](tmp_path / "r.fastq.gz", data)
+    blocks = _blocks(tmp_path / "r.fastq.gz")
+    assert len(blocks) == 11
+    group_bytes = b"".join(blocks[:n] + blocks[-1:] * eof)
+    got = bgzf._inflate_members(group_bytes)
+    assert got == gzip.decompress(group_bytes)
+    assert got == zbgzf._inflate_members(group_bytes)
+    assert got == data[:len(got)] and len(got) == min(n * 0xFF00, len(data))
+
+
+def test_zlib_sees_one_member_at_a_time(tmp_path, monkeypatch):
+    """zlib, as the port's bgzf module reaches it, is handed each member of
+    a group of 60 once and alone: no input over BGZF's 65,536 bytes, and
+    the inputs add up to the group. The rest of the group is never handed
+    over (it would be copied, as ``unused_data``, once a member)."""
+    sizes = []
+
+    class Recorded:
+        def __init__(self, obj):
+            self._obj = obj
+
+        def decompress(self, data, *args):
+            sizes.append(len(data))
+            return self._obj.decompress(data, *args)
+
+        def __getattr__(self, name):
+            return getattr(self._obj, name)
+
+    def decompress(data, *args):
+        sizes.append(len(data))
+        return zlib.decompress(data, *args)
+
+    monkeypatch.setattr(bgzf, "zlib", types.SimpleNamespace(
+        decompress=decompress,
+        decompressobj=lambda *a, **kw: Recorded(zlib.decompressobj(*a, **kw))))
+    data = _fastq_bytes(59 * BLOCK)
+    _write_bgzf(tmp_path / "r.fastq.gz", data)
+    group = b"".join(_blocks(tmp_path / "r.fastq.gz"))
+    assert bgzf._inflate_members(group) == data
+    assert len(sizes) == 61
+    assert max(sizes) <= 65_536 and sum(sizes) == len(group)
+
+
+def _member(piece, pad=b"", body_cut=0, isize=None, magic=b"\x1f\x8b",
+            subfield=b"BC"):
+    """A BGZF member of ``piece``, broken as asked: ``pad`` bytes after its
+    gzip trailer inside its BSIZE, ``body_cut`` bytes cut from the end of
+    its deflate stream, another ISIZE, another magic or another subfield
+    id."""
+    comp = zlib.compressobj(6, zlib.DEFLATED, -15)
+    body = comp.compress(piece) + comp.flush()
+    body = body[:len(body) - body_cut]
+    tail = struct.pack("<II", zlib.crc32(piece),
+                       len(piece) if isize is None else isize) + pad
+    bsize = 12 + 6 + len(body) + len(tail) - 1
+    return (magic + b"\x08\x04\x00\x00\x00\x00\x00\xff"
+            + struct.pack("<H", 6) + subfield
+            + struct.pack("<HH", 2, bsize) + body + tail)
+
+
+FAULTS = {
+    "padded": ({"pad": b"\0\0\0"}, ValueError, "corrupt BGZF block at "),
+    "unended": ({"body_cut": 9}, ValueError, "incomplete or truncated"),
+    "isize_ffffffff": ({"isize": 0xFFFFFFFF}, zlib.error,
+                       "incorrect length check"),
+    "not_gzip": ({"magic": b"\x1f\x8c"}, ValueError,
+                 "corrupt BGZF block header"),
+    "no_bc": ({"subfield": b"BD"}, ValueError, "without BC subfield"),
+}
+
+
+@pytest.mark.parametrize("fault", FAULTS)
+def test_a_broken_member_raises(fault):
+    """The third member of a group, broken; the error names its offset in
+    the group. An ISIZE of 0xFFFFFFFF fails zlib's length check and
+    allocates nothing near that size."""
+    kw, exc, match = FAULTS[fault]
+    data = _fastq_bytes(4 * BLOCK)
+    pieces = [data[i:i + BLOCK] for i in range(0, 4 * BLOCK, BLOCK)]
+    members = [_member(p) for p in pieces[:2]]
+    members += [_member(pieces[2], **kw), _member(pieces[3])]
+    group = b"".join(members)
+    tracemalloc.start()
+    try:
+        with pytest.raises(exc, match=match):
+            bgzf._inflate_members(group)
+        peak = tracemalloc.get_traced_memory()[1]
+    finally:
+        tracemalloc.stop()
+    assert peak < 1 << 20
+    if exc is ValueError:
+        offset = len(members[0]) + len(members[1])
+        with pytest.raises(ValueError, match=f"at offset {offset}\\b"):
+            bgzf._inflate_members(group)
+
+
 def _inflate_counters(paths, traced=True):
     metrics.reset_counters()
     if traced:
@@ -192,7 +330,9 @@ def test_a_traced_call_counts_what_was_inflated(lanes, env, form, n):
     """Exactly: the FASTQ bytes out, the files' member bytes in, one thread
     a file of one group (a plain gzip file's prefetch thread, or the one
     task of a BGZF pool); seconds above 0. A BGZF file of many groups counts
-    the threads of its pool that ran a task. Nothing for plain files."""
+    the threads of its pool that ran a task. The members inflated, each
+    from its own slice, are the BGZF files' blocks, the EOF block
+    included; a plain gzip file counts none. Nothing for plain files."""
     paths = lanes["paths"]["bgzf" if form == "bgzf_groups" else form][:n]
     if form == "bgzf_groups":
         env.setattr(bgzf, "GROUP_BYTES", BLOCK)
@@ -201,8 +341,10 @@ def test_a_traced_call_counts_what_was_inflated(lanes, env, form, n):
         assert got == {}
         return
     assert set(got) == {"inflate.bytes_in", "inflate.bytes_out",
-                        "inflate.s", "inflate.threads"}
+                        "inflate.s", "inflate.threads", "inflate.members"}
     assert got["inflate.bytes_out"] == sum(map(len, lanes["texts"][:n]))
+    blocks = sum(-(-len(t) // BLOCK) + 1 for t in lanes["texts"][:n])
+    assert got["inflate.members"] == (0 if form == "gzip" else blocks)
     assert got["inflate.bytes_in"] == sum(map(os.path.getsize, paths))
     if form == "bgzf_groups":
         assert n <= got["inflate.threads"] <= n * BGZF_WORKERS

@@ -1,7 +1,7 @@
 """BGZF (bgzip) block-parallel gzip input.
 
 Reference analog: none -- zotmer opens .gz serially (SURVEY.md section 1 L1).
-A copy of zotpu/io/bgzf.py. A single plain-gzip STREAM is inherently
+Written after zotpu/io/bgzf.py. A single plain-gzip STREAM is inherently
 serial to inflate (each byte's dictionary is the previous 32 KB), so one
 large .fastq.gz caps host input at one core's inflate rate. BGZF -- the
 blocked gzip variant ubiquitous in genomics (htslib/bgzip/BAM) -- is a
@@ -14,7 +14,9 @@ hands the batched parsers: it walks the block headers sequentially (one
 bounded buffer), groups ~``GROUP_BYTES`` of compressed blocks, inflates the
 groups in a small thread pool (zlib releases the GIL), and yields the
 inflated chunks IN ORDER with a bounded in-flight window -- flat RSS, same
-bytes as serial gzip (tests assert equality).
+bytes as serial gzip (tests assert equality). A group's members are each
+inflated from a slice of the group that holds that member alone, so zlib
+is never handed (and never copies, under the GIL) the rest of the group.
 
 What an inflate did is counted in an ``InflateTotals`` that the caller
 hands the pipe (``BgzfPipe`` here, ``fastq._ChunkPipe`` for plain gzip):
@@ -42,26 +44,29 @@ class InflateTotals:
     it: ``bytes_in``, the compressed bytes of the gzip members inflated;
     ``bytes_out``, the bytes they gave; ``s``, the wall seconds of each
     inflate task, summed over tasks; ``threads``, the threads that ran at
-    least one task. The pipes add on the threads that inflate, under a
-    lock."""
+    least one task; ``members``, the BGZF members inflated, each from its
+    own slice (0 for plain gzip, whose stream is read whole). The pipes add
+    on the threads that inflate, under a lock."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._ran: set[threading.Thread] = set()  # held: none counts twice
-        self.bytes_in = self.bytes_out = 0
+        self.bytes_in = self.bytes_out = self.members = 0
         self.s = 0.0
 
     @property
     def threads(self) -> int:
         return len(self._ran)
 
-    def add(self, bytes_in: int, bytes_out: int, s: float) -> None:
+    def add(self, bytes_in: int, bytes_out: int, s: float,
+            members: int = 0) -> None:
         """One task's totals, added on the thread that ran it."""
         with self._lock:
             self._ran.add(threading.current_thread())
             self.bytes_in += bytes_in
             self.bytes_out += bytes_out
             self.s += s
+            self.members += members
 
 
 def _bc_bsize(extra: bytes) -> int | None:
@@ -123,13 +128,44 @@ def _iter_groups(path: str, group_bytes: int):
             yield b"".join(group)
 
 
+def _member_spans(data: bytes):
+    """Yield ``(start, end)`` of each BGZF member of ``data``, a
+    concatenation of whole members, from the BSIZE of its BC subfield."""
+    off = 0
+    while off < len(data):
+        hdr = data[off:off + 12]
+        if len(hdr) < 12 or hdr[:2] != _GZ_MAGIC or not hdr[3] & _FEXTRA:
+            raise ValueError(f"corrupt BGZF block header at offset {off}")
+        xlen = struct.unpack_from("<H", hdr, 10)[0]
+        bsize = _bc_bsize(data[off + 12:off + 12 + xlen])
+        if bsize is None:
+            raise ValueError(f"BGZF block without BC subfield at offset {off}")
+        end = off + bsize + 1
+        if end > len(data):
+            raise ValueError(f"truncated BGZF block at offset {off}")
+        yield off, end
+        off = end
+
+
 def _inflate_members(data: bytes) -> bytes:
-    """Inflate a concatenation of complete gzip members."""
+    """Inflate a concatenation of complete BGZF members, each from a
+    slice that ends where its BSIZE says: zlib (which releases the GIL
+    while it inflates) is handed no byte past the member, so there is no
+    rest of the group to carry over in ``unused_data``. wbits 31 keeps
+    zlib's checks of each member's gzip header, CRC32 and ISIZE; a deflate
+    stream that does not end exactly at the member's end raises."""
+    view = memoryview(data)
     out = []
-    while data:
+    for start, end in _member_spans(data):
         d = zlib.decompressobj(wbits=31)
-        out.append(d.decompress(data))
-        data = d.unused_data
+        out.append(d.decompress(view[start:end]))
+        if not d.eof:
+            raise ValueError(f"corrupt BGZF block at offset {start}: "
+                             "incomplete or truncated deflate stream")
+        if d.unused_data:
+            raise ValueError(f"corrupt BGZF block at offset {start}: "
+                             f"{len(d.unused_data)} bytes after its gzip "
+                             "member")
     return b"".join(out)
 
 
@@ -164,9 +200,9 @@ class BgzfPipe:
 
     With ``totals`` (an ``InflateTotals``) the pipe counts each task, timed
     on the pool thread that runs ``_inflate_members``: its group's bytes in
-    and out, its seconds and its thread. A pool starts a thread only as
-    tasks come, so a file of one group counts one. The caller's driving
-    thread records them; nothing is counted here."""
+    and out, its seconds, its thread and its members. A pool starts a
+    thread only as tasks come, so a file of one group counts one. The
+    caller's driving thread records them; nothing is counted here."""
 
     def __init__(self, path: str, workers: int | None = None,
                  totals: InflateTotals | None = None):
@@ -176,7 +212,9 @@ class BgzfPipe:
             def inflate(data: bytes) -> bytes:
                 t = time.perf_counter()
                 out = _inflate_members(data)
-                totals.add(len(data), len(out), time.perf_counter() - t)
+                dt = time.perf_counter() - t
+                totals.add(len(data), len(out), dt,
+                           sum(1 for _ in _member_spans(data)))
                 return out
         self._gen = _ordered_parallel(
             _iter_groups(path, GROUP_BYTES), inflate, workers,

@@ -81,8 +81,8 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
     of their own, where a counter would be dropped) is summed in one
     ``bgzf.InflateTotals`` and recorded here, on the driving thread, once
     the last batch has passed: ``inflate.bytes_in``, ``inflate.bytes_out``,
-    ``inflate.s`` and ``inflate.threads``. A call over plain files records
-    none of them."""
+    ``inflate.s``, ``inflate.threads`` and ``inflate.members`` (0 for plain
+    gzip). A call over plain files records none of them."""
     workers = parse_workers()
     inflated = bgzf.InflateTotals() if metrics.tracing() else None
 
@@ -136,7 +136,7 @@ def batches(paths, batch_reads, max_len, k, wire_pack=False, pin=False,
             yield f, batch, host, n_rec
     yield from rejoin.flush()
     if inflated is not None and inflated.threads:
-        for name in ("bytes_in", "bytes_out", "s", "threads"):
+        for name in ("bytes_in", "bytes_out", "s", "threads", "members"):
             metrics.count("inflate." + name, getattr(inflated, name))
 
 
